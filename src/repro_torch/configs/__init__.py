@@ -1,0 +1,55 @@
+"""Arch configs of the port (``--arch <id>``).
+
+Each ported module exports ``config()`` (the full-size config) and
+``reduced()`` (a small variant of the same family for CPU tests), with
+the same numbers as the reference's ``repro/configs``.  Only
+``llama3.2-1b`` is ported so far; every other reference arch id raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+ARCH_IDS = (
+    "jamba-v0.1-52b",
+    "rwkv6-7b",
+    "chatglm3-6b",
+    "olmoe-1b-7b",
+    "gemma2-2b",
+    "internlm2-20b",
+    "whisper-large-v3",
+    "llama3.2-1b",
+    "qwen3-moe-30b-a3b",
+    "llama-3.2-vision-11b",
+)
+
+_MODULES = {
+    "llama3.2-1b": "llama3_2_1b",
+}
+
+#: where each not-yet-ported arch waits (ROADMAP.md, queue 1)
+_PENDING = {
+    "chatglm3-6b": "queue 1 item 1 (remaining attention + dense configs)",
+    "gemma2-2b": "queue 1 item 1 (remaining attention + dense configs)",
+    "internlm2-20b": "queue 1 item 1 (remaining attention + dense configs)",
+    "olmoe-1b-7b": "queue 1 item 7 (MoE slice)",
+    "qwen3-moe-30b-a3b": "queue 1 item 7 (MoE slice)",
+    "jamba-v0.1-52b": "queue 1 item 10 (recurrent and encoder mixers)",
+    "rwkv6-7b": "queue 1 item 10 (recurrent and encoder mixers)",
+    "whisper-large-v3": "queue 1 item 10 (recurrent and encoder mixers)",
+    "llama-3.2-vision-11b": "queue 1 item 10 (recurrent and encoder mixers)",
+}
+
+
+def get_config(arch_id: str, *, reduced: bool = False):
+    if arch_id in _PENDING:
+        raise NotImplementedError(
+            f"arch {arch_id!r} is not ported to repro_torch yet; it waits "
+            f"for ROADMAP.md {_PENDING[arch_id]}")
+    if arch_id not in _MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCH_IDS)}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
+    cfg = mod.reduced() if reduced else mod.config()
+    cfg.validate()
+    return cfg

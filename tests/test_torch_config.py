@@ -1,0 +1,53 @@
+"""The port's config schema and registry mirror the reference's."""
+
+import dataclasses
+
+import pytest
+
+from repro.configs import get_config as jget
+from repro.models import config as jconfig
+from repro_torch.configs import ARCH_IDS, get_config as tget
+from repro_torch.models import config as tconfig
+
+
+def _fields(cls):
+    return [(f.name, f.default, f.default_factory, str(f.type))
+            for f in dataclasses.fields(cls)]
+
+
+@pytest.mark.parametrize("name", ["LayerSpec", "EncoderConfig", "ArchConfig"])
+def test_fields_match_reference(name):
+    assert _fields(getattr(tconfig, name)) == _fields(getattr(jconfig, name))
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_llama_config_equals_reference(reduced):
+    t = tget("llama3.2-1b", reduced=reduced)
+    j = jget("llama3.2-1b", reduced=reduced)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert (t.num_layers, t.padded_vocab, t.has_moe) == \
+        (j.num_layers, j.padded_vocab, j.has_moe)
+
+
+def test_full_width_numbers():
+    c = tget("llama3.2-1b")
+    assert (c.num_layers, c.d_model, c.n_heads, c.n_kv_heads, c.head_dim,
+            c.d_ff, c.vocab, c.tie_embeddings, c.rope_theta) == \
+        (16, 2048, 32, 8, 64, 8192, 128256, True, 500000.0)
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a != "llama3.2-1b"])
+def test_unported_arch_names_its_queue_item(arch):
+    with pytest.raises(NotImplementedError, match="queue 1 item"):
+        tget(arch)
+
+
+def test_unknown_arch_raises_key_error():
+    with pytest.raises(KeyError):
+        tget("no-such-arch")
+
+
+def test_validate_raises_on_bad_heads():
+    c = dataclasses.replace(tget("llama3.2-1b", reduced=True), n_kv_heads=3)
+    with pytest.raises(ValueError):
+        c.validate()
