@@ -8,8 +8,8 @@ result lines:
 
 1. device  — the card's name, count, and ``nvidia-smi``'s name and power
              limit;
-2. build   — builds every CUDA kernel of the serve path from
-             ``src/repro_torch/kernels/csrc`` with nvcc (in parallel);
+2. build   — builds the CUDA kernel of the serve path from
+             ``src/repro_torch/kernels/csrc`` with nvcc;
 3. kernels — each kernel against its plain PyTorch version on the card,
              at the test shapes and at llama3.2-1b's full-width decode
              shape, in float32 (atol 2e-5) and bfloat16 (atol 2e-2);
@@ -317,19 +317,21 @@ def phase_timing(torch, pk):
     check((o_lib - ref).abs().max().item() <= 1e-3,
           "library yardstick disagrees with the gather")
 
-    # the least time for this work: the used K/V pages, q, out, table and
-    # q_pos once over the memory rate, or the flops over the f32 rate
+    # the least time for this work: the K/V rows at positions 0..q_pos
+    # (no window here), the live page-table entries, q, out and q_pos once
+    # over the memory rate, or the flops over the f32 rate
     el = 4
-    rows = sum((min(p // ps, P - 1) + 1) * ps for p in pos)   # no window
+    rows = sum(min(p, P * ps - 1) + 1 for p in pos)
+    live_pages = sum(min(p // ps, P - 1) + 1 for p in pos)
     nbytes = (2 * rows * KV * hd * el + 2 * B * KV * G * hd * el
-              + B * P * 4 + B * 4)
-    flops = 4 * sum(p + 1 for p in pos) * KV * G * hd
+              + live_pages * 4 + B * 4)
+    flops = 4 * rows * KV * G * hd
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
     bound = max(t_bytes, t_ops)
     by = "bytes" if t_bytes >= t_ops else "operations"
     say("timing", f"paged_decode at B{B} KV{KV} G{G} hd{hd} ps{ps} float32, "
         f"q_pos up to 2047: kernel {kern:.4f} ms, bound {bound:.4f} ms "
-        f"({by}: {nbytes / 1e6:.2f} MB), gather {plain:.4f} ms, "
+        f"({by}: {nbytes} bytes), gather {plain:.4f} ms, "
         f"sdpa on gathered K/V {lib:.4f} ms")
     return {"ms": kern, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
             "library_ms": lib}
@@ -365,7 +367,7 @@ def main() -> int:
     from repro_torch.kernels import paged_attention as pk
 
     t0 = time.perf_counter()
-    _build.build(["paged_decode"])
+    _build.build("paged_decode")
     say("build", f"paged_decode built in {time.perf_counter() - t0:.1f} s")
     for line in _build.BUILD_LOG.get("paged_decode", "").splitlines():
         if "registers" in line or "spill" in line:

@@ -5,8 +5,7 @@ Each ``csrc/<name>.cu`` becomes its own shared library with a plain C
 interface, compiled for Hopper (``sm_90a``) into ``_build/`` beside this
 file (listed in ``.gitignore``).  The file name carries a hash of the
 sources and flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is.  Several kernels build in parallel: one ``nvcc`` process
-per source, all started together.  Nothing here runs at import time.
+loaded as it is.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -52,39 +51,29 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: list[str]) -> dict[str, Path]:
-    """Compile every kernel of ``names`` whose library is missing, all in
-    parallel; raise with nvcc's output if any fails."""
+def build(name: str) -> Path:
+    """Compile kernel ``name`` unless its library exists; raise with
+    nvcc's output if the build fails."""
+    path = _library_path(name)
+    if path.exists():
+        return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {n: _library_path(n) for n in names}
-    todo = {n: p for n, p in paths.items() if not p.exists()}
-    if not todo:
-        return paths
-    nvcc = nvcc_path()
-    procs = {}
-    for n, p in todo.items():
-        tmp = p.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-        procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                          stderr=subprocess.STDOUT,
-                                          text=True))
-    failed = []
-    for n, (tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        BUILD_LOG[n] = log
-        if proc.returncode != 0:
-            failed.append(f"--- {n} (exit {proc.returncode}) ---\n{log}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, todo[n])          # atomic: no half-written .so
-    if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    return paths
+    tmp = path.with_suffix(f".tmp{os.getpid()}.so")
+    proc = subprocess.run(
+        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    BUILD_LOG[name] = proc.stdout
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed on {name}.cu (exit "
+                           f"{proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, path)                     # atomic: no half-written .so
+    return path
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name`` (built first if missing)."""
     lib = _LIBS.get(name)
     if lib is None:
-        lib = _LIBS[name] = ctypes.CDLL(str(build([name])[name]))
+        lib = _LIBS[name] = ctypes.CDLL(str(build(name)))
     return lib

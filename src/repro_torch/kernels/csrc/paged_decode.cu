@@ -158,6 +158,28 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   }
 }
 
+constexpr size_t kDefaultSmem = 48 * 1024;
+constexpr int kMaxDevices = 64;
+
+// Raises the kernel's dynamic shared-memory limit where a block needs more
+// than the default 48 KiB; once per device and instantiation, since the
+// decode loop launches it every layer.  A size above what the card allows
+// comes back as cudaFuncSetAttribute's error.
+template <typename T>
+cudaError_t ensure_smem(size_t smem) {
+  static size_t configured[kMaxDevices] = {};
+  if (smem <= kDefaultSmem) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && configured[dev] >= smem) return cudaSuccess;
+  err = cudaFuncSetAttribute(paged_decode_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err == cudaSuccess && dev < kMaxDevices) configured[dev] = smem;
+  return err;
+}
+
 template <typename T>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
                    const void* page_table, const void* q_pos, void* out, int B,
@@ -166,11 +188,9 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
   const size_t smem =
       sizeof(float) * ((size_t)2 * G * hd + (size_t)ps * (hd + 1) +
                        (size_t)ps * hd + (size_t)G * ps + 3 * (size_t)G);
-  auto kernel = paged_decode_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = ensure_smem<T>(smem);
   if (err != cudaSuccess) return err;
-  kernel<<<B * KV, kThreads, smem, stream>>>(
+  paged_decode_kernel<T><<<B * KV, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pages),
       static_cast<const T*>(v_pages), static_cast<const int32_t*>(page_table),
       static_cast<const int32_t*>(q_pos), static_cast<T*>(out), KV, G, hd, N,

@@ -234,8 +234,6 @@ def paged_decode_gather(q, k_pages, v_pages, page_table, q_pos, *,
 #: head dims the kernel is built for
 KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: shared memory one block may use on Hopper
-_MAX_SMEM = 232_448
 _FN = None
 
 
@@ -252,11 +250,6 @@ def _kernel_fn():
         lib.paged_decode_error_string.restype = ctypes.c_char_p
         _FN = (fn, lib.paged_decode_error_string)
     return _FN
-
-
-def kernel_smem_bytes(G: int, hd: int, ps: int) -> int:
-    """Dynamic shared memory of one block (mirrors ``launch`` in the .cu)."""
-    return 4 * (2 * G * hd + ps * (hd + 1) + ps * hd + G * ps + 3 * G)
 
 
 def paged_decode_cuda(q, k_pages, v_pages, page_table, q_pos, *,
@@ -305,11 +298,6 @@ def paged_decode_cuda(q, k_pages, v_pages, page_table, q_pos, *,
         raise ValueError(f"paged_decode_cuda: window {window} < 1")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_decode_cuda: tensors must be contiguous")
-    if kernel_smem_bytes(G, hd, ps) > _MAX_SMEM:
-        raise ValueError(
-            f"paged_decode_cuda: G={G}, hd={hd}, page_size={ps} need "
-            f"{kernel_smem_bytes(G, hd, ps)} B of shared memory per block, "
-            f"above the {_MAX_SMEM} B a Hopper block can use")
 
     fn, err_str = _kernel_fn()
     out = torch.empty_like(q)
@@ -320,8 +308,10 @@ def paged_decode_cuda(q, k_pages, v_pages, page_table, q_pos, *,
                  B, KV, G, hd, N, ps, P, window or 0, float(softcap or 0.0),
                  1.0 / math.sqrt(hd), _KERNEL_DTYPES[q.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"paged_decode kernel launch failed: "
-                           f"{err_str(err).decode()} (cudaError {err})")
+        raise RuntimeError(
+            f"paged_decode kernel launch failed at G={G}, hd={hd}, "
+            f"page_size={ps}: {err_str(err).decode()} (cudaError {err}; a "
+            "block's shared memory grows with G, hd and page_size)")
     paged_decode_cuda.launches += 1
     return out
 

@@ -68,6 +68,18 @@ def test_paged_decode_kernel_matches_gather(cuda, dtype, atol, B, KV, G, hd,
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
 
 
+def test_kernel_smem_fits_every_supported_shape(cuda):
+    # llama (G4 hd64), internlm2 (G6 hd128), chatglm3 (G16 hd128), gemma2
+    # (G2/G4 hd256) and G16 hd256 at page size 16: each block's shared
+    # memory is accepted by the card (G16 hd256 is above the default
+    # 48 KiB), and the result still matches the gather (float32 atol 2e-5)
+    for G, hd in [(4, 64), (6, 128), (16, 128), (4, 256), (16, 256)]:
+        args = _inputs(1, 1, G, hd, 16, 2, torch.float32, cuda)
+        got = pk.paged_decode_cuda(*args)
+        want = pk.paged_decode_gather(*args)
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+
+
 def test_paged_decode_kernel_rejects_what_it_does_not_take(cuda):
     args = _inputs(2, 2, 2, 64, 4, 4, torch.float32, cuda)
     with pytest.raises(ValueError, match="head_dim"):

@@ -90,13 +90,6 @@ def test_impl_switch():
         tops.paged_attention_decode(q, kp, vp, table, q_pos, impl="pallas")
 
 
-def test_kernel_smem_fits_every_supported_shape():
-    # llama (G4 hd64), internlm2 (G6 hd128), chatglm3 (G16 hd128),
-    # gemma2 (G2/G4 hd256) at page size 16 all fit one Hopper block
-    for G, hd in [(4, 64), (6, 128), (16, 128), (4, 256), (16, 256)]:
-        assert tpk.kernel_smem_bytes(G, hd, 16) <= tpk._MAX_SMEM
-
-
 # --------------------------------------------------------------------------
 # pool writes: bit-exact against the reference
 # --------------------------------------------------------------------------
