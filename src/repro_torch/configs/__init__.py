@@ -2,9 +2,10 @@
 
 Each ported module exports ``config()`` (the full-size config) and
 ``reduced()`` (a small variant of the same family for CPU tests), with
-the same numbers as the reference's ``repro/configs``.  Only
-``llama3.2-1b`` is ported so far; every other reference arch id raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+the same numbers as the reference's ``repro/configs``.  Ported:
+``llama3.2-1b``, ``olmoe-1b-7b`` and ``qwen3-moe-30b-a3b``; every other
+reference arch id raises ``NotImplementedError`` naming the ROADMAP item
+that ports it.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ ARCH_IDS = (
 
 _MODULES = {
     "llama3.2-1b": "llama3_2_1b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
 }
 
 #: where each not-yet-ported arch waits (ROADMAP.md, queue 1)
@@ -33,8 +36,6 @@ _PENDING = {
     "chatglm3-6b": "queue 1 item 1 (remaining attention + dense configs)",
     "gemma2-2b": "queue 1 item 1 (remaining attention + dense configs)",
     "internlm2-20b": "queue 1 item 1 (remaining attention + dense configs)",
-    "olmoe-1b-7b": "queue 1 item 7 (MoE slice)",
-    "qwen3-moe-30b-a3b": "queue 1 item 7 (MoE slice)",
     "jamba-v0.1-52b": "queue 1 item 10 (recurrent and encoder mixers)",
     "rwkv6-7b": "queue 1 item 10 (recurrent and encoder mixers)",
     "whisper-large-v3": "queue 1 item 10 (recurrent and encoder mixers)",

@@ -259,12 +259,13 @@ def paged_decode_cuda(q, k_pages, v_pages, page_table, q_pos, *,
 
     Same contract as :func:`paged_decode_gather`; CUDA tensors only, q
     and the pools in one dtype (float32 or bfloat16), every tensor
-    contiguous.  Raises on anything the kernel does not take and when
-    the launch is refused.  ``paged_decode_cuda.launches`` counts the
-    launches."""
+    contiguous.  Raises on anything the kernel does not take, when
+    the launch is refused, and under autograd (the kernel has no
+    backward).  ``paged_decode_cuda.launches`` counts the launches."""
     tensors = (q, k_pages, v_pages, page_table, q_pos)
     if not all(t.is_cuda for t in tensors):
         raise ValueError("paged_decode_cuda takes CUDA tensors only")
+    _build.refuse_autograd("paged_decode_cuda", *tensors)
     if len({t.device for t in tensors}) != 1:
         raise ValueError("paged_decode_cuda: tensors on different devices")
     if q.dtype not in _KERNEL_DTYPES:

@@ -54,8 +54,9 @@ class ArchConfig:
     moe_top_k: int = 0
     moe_d_ff: int = 0                   # per-expert FFN width
     moe_capacity_factor: float = 1.25   # GShard per-group expert capacity
-    #: MoE dispatch/combine data path (MoE is not ported yet; kept so the
-    #: schema matches the reference field for field)
+    #: MoE dispatch/combine data path (kernels/ops.py): "auto" → the CUDA
+    #: kernels for CUDA tensors, the slot gathers for CPU tensors; "slot"
+    #: / "cuda" force a path; "ref" pins the scatter/gather oracle
     moe_impl: str = "auto"
     #: decode KV-cache layout: "dense" = per-sequence ring buffers (the
     #: oracle); "paged" = shared page pool + per-sequence page tables

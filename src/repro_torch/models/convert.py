@@ -48,9 +48,25 @@ def params_from_jax(np_params, cfg: ArchConfig, *, device=None,
     if len(blocks) != len(cfg.pattern):
         raise ValueError(f"{len(blocks)} pattern blocks, {cfg.name} has "
                          f"{len(cfg.pattern)}")
-    for blk in blocks:
+    for blk, spec in zip(blocks, cfg.pattern):
         lead = np.shape(blk["norm1"])[0]
         if lead != cfg.repeats:
             raise ValueError(f"blocks stacked over {lead} repeats, "
                              f"{cfg.name} has {cfg.repeats}")
+        if spec.ffn == "moe":
+            _check_moe(blk.get("ffn"), cfg)
     return _convert(dict(np_params), dev, dtype)
+
+
+def _check_moe(ffn, cfg: ArchConfig) -> None:
+    """The MoE leaves of one pattern position against the config:
+    router (R, d, E), w1/w3 (R, E, d, f), w2 (R, E, f, d)."""
+    R, d, E = cfg.repeats, cfg.d_model, cfg.moe_experts
+    f = cfg.moe_d_ff or cfg.d_ff
+    want = {"router": (R, d, E), "w1": (R, E, d, f), "w3": (R, E, d, f),
+            "w2": (R, E, f, d)}
+    got = ({k: tuple(np.shape(v)) for k, v in ffn.items()}
+           if isinstance(ffn, dict) else None)
+    if got != want:
+        raise ValueError(f"{cfg.name}: MoE ffn leaves {got}, the config "
+                         f"needs {want}")

@@ -1,5 +1,5 @@
 """Block-pattern decoder: init, prefill, decode (port of
-``repro.models.decoder`` for attention + dense-FFN archs).
+``repro.models.decoder`` for attention archs with dense or MoE FFNs).
 
 Parameters keep the reference's tree: ``embed``, ``final_norm``,
 optional ``lm_head`` and ``blocks`` — a tuple over the pattern whose
@@ -16,8 +16,8 @@ Entry points:
 
 Caches are updated in place (the new k/v land in the caller's pool or
 ring tensors); functions still return the cache dict so call sites read
-like the reference's.  Mamba/RWKV mixers, cross-attention, encoders and
-MoE wait for later slices and raise ``NotImplementedError``.
+like the reference's.  Mamba/RWKV mixers, cross-attention and encoders
+wait for later slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -46,10 +46,10 @@ def _tree_map(fn, tree):
 
 def _check_supported(cfg: ArchConfig) -> None:
     for s in cfg.pattern:
-        if s.mixer != "attn" or s.ffn not in ("dense", "none"):
+        if s.mixer != "attn" or s.ffn not in ("dense", "moe", "none"):
             raise NotImplementedError(
                 f"{cfg.name}: mixer {s.mixer!r} / ffn {s.ffn!r} are not "
-                "ported yet (ROADMAP.md queue 1 items 7 and 10)")
+                "ported yet (ROADMAP.md queue 1 item 10)")
     if cfg.encoder is not None or cfg.cross_kv_len or cfg.pos_embed == "learned":
         raise NotImplementedError(
             f"{cfg.name}: encoders, cross-attention and learned positions "
@@ -95,8 +95,13 @@ def _init_layer(gen, cfg: ArchConfig, spec: LayerSpec, device, dtype):
                                          device=device, dtype=dtype)
     if spec.ffn != "none":
         p["norm2"] = _norm_init(cfg, d, device, dtype)
+    if spec.ffn == "dense":
         p["ffn"] = moe_mod.init_dense_ffn(gen, d, cfg.d_ff, device=device,
                                           dtype=dtype)
+    elif spec.ffn == "moe":
+        p["ffn"] = moe_mod.init_moe(gen, d, cfg.moe_d_ff or cfg.d_ff,
+                                    cfg.moe_experts, device=device,
+                                    dtype=dtype)
     if spec.post_norm:
         p["norm_post1"] = _norm_init(cfg, d, device, dtype)
         if spec.ffn != "none":
@@ -108,8 +113,12 @@ def init_model(cfg: ArchConfig, *, seed: int = 0, device=None,
                dtype=torch.float32):
     """Random parameters with the reference's distributions and scales
     (embedding and head N(0, 1/d_model), projections as in
-    ``nn.attention.init_attention`` / ``nn.moe.init_dense_ffn``, norms 1),
-    drawn from a ``torch.Generator`` seeded with ``seed`` on ``device``.
+    ``nn.attention.init_attention`` / ``nn.moe.init_dense_ffn`` /
+    ``nn.moe.init_moe``, norms 1), drawn layer by layer from a
+    ``torch.Generator`` seeded with ``seed`` on ``device``.  Each layer is
+    copied into its slot of the stacked leaves as it is drawn, so the
+    peak is the stacked tree plus one layer (OLMoE-1B-7B's expert weights
+    are 27 GB in float32).
     The draws differ from ``jax.random``'s: parity tests convert the
     reference's weights with :func:`repro_torch.models.convert.params_from_jax`.
     """
@@ -128,20 +137,29 @@ def init_model(cfg: ArchConfig, *, seed: int = 0, device=None,
     if not cfg.tie_embeddings:
         params["lm_head"] = torch.randn((d, vp), generator=gen, device=dev,
                                         dtype=dtype) * s
-    blocks = []
-    for spec in cfg.pattern:
-        layers = [_init_layer(gen, cfg, spec, dev, dtype)
-                  for _ in range(cfg.repeats)]
-        blocks.append(_stack(layers))
-    params["blocks"] = tuple(blocks)
+    params["blocks"] = tuple(_init_stacked(gen, cfg, spec, dev, dtype)
+                             for spec in cfg.pattern)
     return params
 
 
-def _stack(trees: list):
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return torch.stack(trees)
+def _init_stacked(gen, cfg: ArchConfig, spec: LayerSpec, device, dtype):
+    """``repeats`` layers of ``spec`` stacked on a leading axis, each
+    drawn and copied into place in turn."""
+    first = _init_layer(gen, cfg, spec, device, dtype)
+    out = _tree_map(lambda a: a.new_empty((cfg.repeats, *a.shape)), first)
+    for r in range(cfg.repeats):
+        layer = first if r == 0 else _init_layer(gen, cfg, spec, device,
+                                                 dtype)
+        _copy_into(out, layer, r)
+    return out
+
+
+def _copy_into(dst, src, r: int) -> None:
+    if isinstance(dst, dict):
+        for k in dst:
+            _copy_into(dst[k], src[k], r)
+    else:
+        dst[r].copy_(src)
 
 
 # --------------------------------------------------------------------------
@@ -205,10 +223,18 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
 
 
 def _ffn_block(cfg, spec: LayerSpec, p, x):
-    """norm2 → dense FFN → (post-norm) → residual."""
+    """norm2 → dense or MoE FFN → (post-norm) → residual.  The MoE routes
+    each sequence as one group (prefill: S tokens; decode: 1) through
+    ``cfg.moe_impl``; its aux loss is a training term and is dropped."""
     if spec.ffn == "none":
         return x
-    y = moe_mod.dense_ffn(p["ffn"], _norm(cfg, p["norm2"], x))
+    h = _norm(cfg, p["norm2"], x)
+    if spec.ffn == "moe":
+        y, _ = moe_mod.moe_ffn(p["ffn"], h, top_k=cfg.moe_top_k,
+                               capacity_factor=cfg.moe_capacity_factor,
+                               impl=cfg.moe_impl)
+    else:
+        y = moe_mod.dense_ffn(p["ffn"], h)
     if spec.post_norm:
         y = _norm(cfg, p["norm_post2"], y)
     return x + y

@@ -36,7 +36,28 @@ def test_full_width_numbers():
         (16, 2048, 32, 8, 64, 8192, 128256, True, 500000.0)
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a != "llama3.2-1b"])
+PORTED = ("llama3.2-1b", "olmoe-1b-7b", "qwen3-moe-30b-a3b")
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("arch", PORTED[1:])
+def test_moe_config_equals_reference(arch, reduced):
+    t = tget(arch, reduced=reduced)
+    j = jget(arch, reduced=reduced)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert (t.num_layers, t.padded_vocab, t.has_moe) == \
+        (j.num_layers, j.padded_vocab, True)
+
+
+def test_olmoe_full_width_numbers():
+    c = tget("olmoe-1b-7b")
+    assert (c.num_layers, c.d_model, c.n_heads, c.n_kv_heads, c.head_dim,
+            c.moe_experts, c.moe_top_k, c.moe_d_ff, c.vocab, c.padded_vocab,
+            c.tie_embeddings, c.pattern[0].qk_norm) == \
+        (16, 2048, 16, 16, 128, 64, 8, 1024, 50304, 50432, False, True)
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a not in PORTED])
 def test_unported_arch_names_its_queue_item(arch):
     with pytest.raises(NotImplementedError, match="queue 1 item"):
         tget(arch)

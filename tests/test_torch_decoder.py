@@ -195,3 +195,87 @@ def test_sample_logits_generator_is_reproducible_and_filtered():
     assert torch.equal(draws[0], draws[1])
     top3 = torch.topk(logits, 3, dim=-1).indices
     assert all(int(t) in top3[i].tolist() for i, t in enumerate(draws[0]))
+
+
+# --------------------------------------------------------------------------
+# MoE archs: reduced olmoe-1b-7b and qwen3-moe-30b-a3b (2 layers, d 256,
+# 4 experts, top-2, qk-norm), float32 on the CPU
+# --------------------------------------------------------------------------
+
+MOE_ARCHS = ("olmoe-1b-7b", "qwen3-moe-30b-a3b")
+
+
+@pytest.fixture(scope="module", params=MOE_ARCHS)
+def moe_models(request):
+    jcfg = dataclasses.replace(jget(request.param, reduced=True),
+                               kv_impl="paged")
+    tcfg = dataclasses.replace(tget(request.param, reduced=True),
+                               kv_impl="paged")
+    jp = jdec.init_model(jcfg, jax.random.PRNGKey(0))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
+    return jcfg, tcfg, jp, tp
+
+
+def test_moe_prefill_and_decode_steps_match_reference(moe_models):
+    """Right-padded batched prefill (the MoE routes each sequence as one
+    group of S tokens, drops included) and one-token decode steps (one
+    group per slot, capacity 8) against the reference's auto path."""
+    jcfg, tcfg, jp, tp = moe_models
+    B, S = 3, 21
+    toks = _prompts(B, S, jcfg.vocab, seed=7)
+    lengths = np.asarray([21, 12, 3], np.int32)
+    jc = jdec.init_cache(jcfg, B, 40, dtype=F32J, page_size=8)
+    tc = tdec.init_cache(tcfg, B, 40, dtype=F32T, page_size=8, device="cpu")
+    jl, jc = _jprefill(jp, jcfg, jnp.asarray(toks), jc,
+                       lengths=jnp.asarray(lengths), compute_dtype=F32J)
+    tl, tc = tdec.prefill(tp, tcfg, torch.from_numpy(toks), tc,
+                          lengths=torch.from_numpy(lengths),
+                          compute_dtype=F32T)
+    for b, n in enumerate(lengths):
+        np.testing.assert_allclose(tl[b, :n].numpy(), np.asarray(jl)[b, :n],
+                                   **TOL)
+    tok = np.stack([np.asarray(jl)[b, n - 1, :jcfg.vocab].argmax()
+                    for b, n in enumerate(lengths)]).astype(np.int32)[:, None]
+    for _ in range(5):
+        jl, jc = _jstep(jp, jcfg, jnp.asarray(tok), jc, 0,
+                        compute_dtype=F32J)
+        tl, tc = tdec.decode_step(tp, tcfg, torch.from_numpy(tok), tc,
+                                  compute_dtype=F32T)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+        tok = np.asarray(jl)[:, :, :jcfg.vocab].argmax(-1).astype(np.int32)
+
+
+def test_moe_decode_loop_greedy_tokens_equal_reference(moe_models):
+    jcfg, tcfg, jp, tp = moe_models
+    B, S, steps = 2, 11, 10
+    toks = _prompts(B, S, jcfg.vocab, seed=8)
+    jc = jdec.init_cache(jcfg, B, 32, dtype=F32J)
+    tc = tdec.init_cache(tcfg, B, 32, dtype=F32T, device="cpu")
+    jl, jc = _jprefill(jp, jcfg, jnp.asarray(toks), jc, compute_dtype=F32J)
+    tl, tc = tdec.prefill(tp, tcfg, torch.from_numpy(toks), tc,
+                          compute_dtype=F32T)
+    jt = jnp.argmax(jl[:, -1:, :jcfg.vocab], -1).astype(jnp.int32)
+    tt = torch.argmax(tl[:, -1:, :tcfg.vocab], -1).to(torch.int32)
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+    jout, jn, _ = _jloop(jp, jcfg, jt, jc, S, steps, compute_dtype=F32J)
+    tout, tn, _ = tdec.decode_loop(tp, tcfg, tt, tc, S, steps,
+                                   compute_dtype=F32T)
+    np.testing.assert_array_equal(tout.numpy(), np.asarray(jout))
+    np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
+
+
+def test_moe_init_model_tree_and_scales(moe_models):
+    """The port's own init draws the reference's tree (router (R, d, E),
+    experts (R, E, d, f) / (R, E, f, d)) with its per-leaf scales."""
+    _, tcfg, jp, _ = moe_models
+    own = tdec.init_model(tcfg, seed=1, device="cpu")
+    shapes = jax.tree.map(lambda a: tuple(a.shape), jp)
+    assert tdec._tree_map(lambda t: tuple(t.shape), own) == \
+        {**shapes, "blocks": tuple(shapes["blocks"])}
+    ffn = own["blocks"][0]["ffn"]
+    d, f = tcfg.d_model, tcfg.moe_d_ff
+    assert abs(ffn["w1"].std().item() * d ** 0.5 - 1) < 0.05
+    assert abs(ffn["w2"].std().item() * f ** 0.5 - 1) < 0.05
+    assert abs(ffn["router"].std().item() * d ** 0.5 - 1) < 0.1
+    # layers are drawn one after another, not copies of one draw
+    assert not torch.equal(ffn["w1"][0], ffn["w1"][1])

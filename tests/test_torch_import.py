@@ -15,7 +15,8 @@ PORT = ROOT / "src" / "repro_torch"
 
 
 MODULES = ["repro_torch", "repro_torch.launch.serve",
-           "repro_torch.kernels.ops"]
+           "repro_torch.kernels.ops", "repro_torch.nn.moe",
+           "repro_torch.kernels.moe"]
 
 
 @pytest.fixture(scope="module")

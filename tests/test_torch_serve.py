@@ -22,15 +22,14 @@ from repro_torch.models.convert import params_from_jax
 ARCH = "llama3.2-1b"
 
 
-@pytest.fixture(scope="module")
-def ref():
+def _reference_weights_and_prompts(arch):
     """The weights ``serve_continuous(seed=0)`` draws in the reference,
     converted for the port, and the reference's prompt for a request."""
     key = jax.random.PRNGKey(0)
-    cfg = jget(ARCH, reduced=True)
+    cfg = jget(arch, reduced=True)
     jp = jdec.init_model(cfg, key)
     tp = params_from_jax(jax.tree.map(np.asarray, jp),
-                         tget(ARCH, reduced=True), device="cpu")
+                         tget(arch, reduced=True), device="cpu")
 
     def prompts(requests):
         return [np.asarray(jax.random.randint(
@@ -38,6 +37,11 @@ def ref():
             for rid, (plen, _) in enumerate(requests)]
 
     return tp, prompts
+
+
+@pytest.fixture(scope="module")
+def ref():
+    return _reference_weights_and_prompts(ARCH)
 
 
 def ticking_clock(dt=0.01):
@@ -170,6 +174,38 @@ def test_cli_reduced_flag_can_select_full_width():
     assert ap.parse_args([]).reduced is True
     assert ap.parse_args(["--no-reduced"]).reduced is False
     assert ap.parse_args(["--device", "cuda"]).device == "cuda"
+
+
+MOE_ARCH = "olmoe-1b-7b"
+#: prompts of 5-37 tokens: prefill capacity 8-24 per expert (drops occur
+#: at the longer prompts), decode capacity 8
+MOE_REQUESTS = [(37, 6), (5, 9), (19, 4)]
+
+
+def test_olmoe_continuous_serve_matches_reference():
+    """Reduced olmoe-1b-7b: greedy token streams, outcomes and counts of
+    the continuous-batching serve (MoE in every prefill and decode step)
+    exactly equal the reference's."""
+    tp, prompts = _reference_weights_and_prompts(MOE_ARCH)
+    kw = dict(requests=MOE_REQUESTS, slots=2, page_size=8, decode_chunk=4)
+    want = jserve.serve_continuous(MOE_ARCH, **kw)
+    got = tserve.serve_continuous(MOE_ARCH, device="cpu", params=tp,
+                                  prompts=prompts(MOE_REQUESTS), **kw)
+    for k in EXACT:
+        assert got[k] == want[k], k
+    assert got["decode_steps"] > 0 and got["prefills"] == len(MOE_REQUESTS)
+    assert got["outcomes"] == ["completed"] * len(MOE_REQUESTS)
+    assert got["generated"] == [g for _, g in MOE_REQUESTS]
+    assert got["pool_conserved"] and got["tokens_in_vocab"]
+
+
+def test_cli_serves_olmoe_on_cpu(capsys):
+    tserve.main(["--arch", MOE_ARCH, "--continuous", "--device", "cpu",
+                 "--batch", "2"])
+    out = json.loads(capsys.readouterr().out)
+    assert out["arch"] == "olmoe-1b-7b-reduced" and out["device"] == "cpu"
+    assert out["outcomes"] == ["completed"] * out["requests"]
+    assert out["pool_conserved"]
 
 
 def test_serve_raises_without_gpu_unless_cpu_requested(monkeypatch):
