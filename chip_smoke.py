@@ -179,12 +179,15 @@ MOE_CASES = [
 def phase_moe_kernels(torch, mk):
     from repro_torch.nn import moe as nn_moe
 
-    worst = {"float32": 0.0, "bfloat16": 0.0}
+    worst = {k: {"float32": 0.0, "bfloat16": 0.0}
+             for k in ("moe_dispatch", "moe_combine")}
 
     def held(label, dname, got, want):
+        """``label`` starts with the kernel's name: dispatch or combine."""
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
-        worst[dname] = max(worst[dname], err)
+        kname = "moe_" + label.split()[0]
+        worst[kname][dname] = max(worst[kname][dname], err)
         check(err <= MOE_TOL[dname], f"{label} {dname}: max|kernel-slot| "
               f"{err:.3e} > {MOE_TOL[dname]:.0e}")
 
@@ -201,6 +204,12 @@ def phase_moe_kernels(torch, mk):
                   f"{label} {dname}: non-finite slab")
             held(f"combine {label}", dname, mk.moe_combine_cuda(buf, eid,
                                                                 pos, w),
+                 mk.combine_slot(buf, eid, pos, w))
+            # the slab as the expert product leaves it: a (G, E, C, D)
+            # view of (E, G, C, D) storage, read through its strides
+            strided = buf.transpose(0, 1).contiguous().transpose(0, 1)
+            held(f"combine {label} strided slab", dname,
+                 mk.moe_combine_cuda(strided, eid, pos, w),
                  mk.combine_slot(buf, eid, pos, w))
         say("kernels", f"moe_dispatch + moe_combine ok: {label} (C {C})")
 
@@ -230,8 +239,9 @@ def phase_moe_kernels(torch, mk):
              mk.combine_slot(buf, eid, pos, w))
     say("kernels", "moe_dispatch + moe_combine ok: out-of-range src/eid/pos "
         "clamped")
-    say("kernels", f"moe max|err| float32 {worst['float32']:.3e} (atol "
-        f"1e-5), bfloat16 {worst['bfloat16']:.3e} (atol 5e-2)")
+    for kname, err in worst.items():
+        say("kernels", f"{kname} max|err| float32 {err['float32']:.3e} "
+            f"(atol 1e-5), bfloat16 {err['bfloat16']:.3e} (atol 5e-2)")
     return worst
 
 
@@ -576,8 +586,19 @@ def time_cold_ms(torch, fn, args, flush, reps: int = 30) -> float:
 def phase_moe_timing(torch, mk):
     """Both MoE kernels at olmoe-1b-7b's decode (4 slots, one token each)
     and 512-token prefill shapes, float32, beside the least bytes each
-    function needs at 3.35 TB/s and the plain version's time."""
+    function needs at 3.35 TB/s, the plain version's time and one library
+    call that computes the same function: ``F.embedding_bag`` in sum mode
+    with per-sample weights over the flattened rows (dispatch: bags of
+    one source row weighted by slot_w; combine: bags of a token's K slab
+    rows weighted by w), its flat indices built before the timer starts
+    and clamped as the kernels clamp."""
     from repro_torch.nn import moe as nn_moe
+
+    F = torch.nn.functional
+
+    def bag(table, idx, wts):
+        return F.embedding_bag(idx, table, per_sample_weights=wts,
+                               mode="sum")
 
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     res = {"moe_dispatch": {}, "moe_combine": {}}
@@ -601,23 +622,35 @@ def phase_moe_timing(torch, mk):
         c_rows = torch.unique(flat).numel()
         c_bytes = c_rows * D * el + G * S * D * el + G * S * K * 12
         c_ops = 2 * G * S * K * D
-        for name, fn, plain, args, nbytes, ops in (
+        # the library call's inputs: flat row ids into x / the slab
+        d_idx = (torch.arange(G, device="cuda")[:, None, None] * S
+                 + src.long().clamp(0, S - 1)).reshape(-1, 1)
+        d_lib = (x.reshape(-1, D), d_idx, sw.reshape(-1, 1))
+        c_lib = (buf.reshape(-1, D), flat.reshape(-1, K), w.reshape(-1, K))
+        for name, fn, plain, args, lib_args, nbytes, ops in (
                 ("moe_dispatch", mk.moe_dispatch_cuda, mk.dispatch_slot,
-                 (x, src, sw), d_bytes, d_ops),
+                 (x, src, sw), d_lib, d_bytes, d_ops),
                 ("moe_combine", mk.moe_combine_cuda, mk.combine_slot,
-                 (buf, eid, pos, w), c_bytes, c_ops)):
+                 (buf, eid, pos, w), c_lib, c_bytes, c_ops)):
+            want = plain(*args)
+            got = bag(*lib_args).reshape(want.shape)
+            err = (got - want).abs().max().item()
+            check(err <= MOE_TOL["float32"], f"{name} {shape}: embedding_bag "
+                  f"disagrees with the plain version by {err:.3e}")
             kern = time_cold_ms(torch, fn, args, flush)
             plain_ms = time_cold_ms(torch, plain, args, flush)
+            lib_ms = time_cold_ms(torch, bag, lib_args, flush)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = ops / F32_FLOPS * 1e3
             bound = max(t_bytes, t_ops)
             by = "bytes" if t_bytes >= t_ops else "operations"
             res[name][shape] = {"ms": kern, "plain_ms": plain_ms,
                                 "bound_ms": bound, "bound_by": by,
-                                "bytes": nbytes}
+                                "library_ms": lib_ms, "bytes": nbytes}
             say("timing", f"{name} at olmoe {shape} G{G} S{S} E{E} K{K} C{C} "
                 f"D{D} float32: kernel {kern:.4f} ms, bound {bound:.4f} ms "
-                f"({by}: {nbytes} bytes), plain version {plain_ms:.4f} ms")
+                f"({by}: {nbytes} bytes), plain version {plain_ms:.4f} ms, "
+                f"embedding_bag {lib_ms:.4f} ms")
     return res
 
 
@@ -696,6 +729,7 @@ def main() -> int:
         "max_abs_err_bf16": worst["bfloat16"], **timing,
         "shape": "llama3.2-1b decode, B8 KV8 G4 hd64, q_pos up to 2047",
     }]
+    TIMED = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for kname, line in (("moe_dispatch", 119), ("moe_combine", 170)):
         t = moe_timing[kname]
         kernels.append({
@@ -704,14 +738,11 @@ def main() -> int:
             "replaces": f"src/repro/kernels/moe.py:{line}",
             "launches": moe_launches[kname],
             "launches_by_path": by_path[kname],
-            "max_abs_err": moe_worst["float32"],
-            "max_abs_err_bf16": moe_worst["bfloat16"],
-            **{k: t["decode"][k] for k in ("ms", "plain_ms", "bound_ms",
-                                           "bound_by")},
-            "library_ms": None,
+            "max_abs_err": moe_worst[kname]["float32"],
+            "max_abs_err_bf16": moe_worst[kname]["bfloat16"],
+            **{k: t["decode"][k] for k in TIMED},
             "shape": "olmoe-1b-7b decode, G4 S1 E64 K8 C8 D2048",
-            "prefill": {k: t["prefill"][k] for k in ("ms", "plain_ms",
-                                                     "bound_ms", "bound_by")},
+            "prefill": {k: t["prefill"][k] for k in TIMED},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -32,9 +32,10 @@
 //    pointers allow it, else one element a thread;
 //  * combine's sum over k runs inside the thread in order (the TPU grid's
 //    sequential k axis), in f32 registers; products and sums are rounded
-//    separately (__fmul_rn / __fadd_rn), as the TPU kernel forms them.  The
-//    K rows' loads are issued together, up to kBatch at a time, before the
-//    sum (see combine_kernel).
+//    separately (__fmul_rn / __fadd_rn), as the TPU kernel forms them;
+//  * combine reads the slab through its g/e/c strides, so the expert
+//    product's permuted output needs no copy; only the D axis must be
+//    contiguous.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,52 +78,33 @@ __global__ void __launch_bounds__(kThreads) dispatch_kernel(
   *reinterpret_cast<Vec<T, VEC>*>(out + slot * D + d0) = o;
 }
 
-// Rows of one token read together: each thread issues the index loads and
-// then the row loads of up to kBatch experts before it sums any of them, so
-// a token's K dependent round trips to device memory overlap instead of
-// queueing (at decode there are only G*S = 4 tokens, too few blocks to hide
-// latency otherwise).  The sum still runs over k in order.
-constexpr int kBatch = 8;
-
+// The slab may be any (G, E, C, D) view whose rows are contiguous: the
+// expert product leaves it as a permuted view of a batched matmul, and
+// the kernel reads it through its g/e/c strides (in elements) instead of
+// a copy.
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads) combine_kernel(
     const T* __restrict__ buf, const int32_t* __restrict__ eid,
     const int32_t* __restrict__ pos, const float* __restrict__ w,
-    T* __restrict__ out, int S, int K, int E, int C, int D) {
+    T* __restrict__ out, int S, int K, int E, int C, int D, long long sg,
+    long long se, long long sc) {
   const long long tok = blockIdx.x;  // flat (g, s)
   const int d0 = (blockIdx.y * kThreads + threadIdx.x) * VEC;
   if (d0 >= D) return;
-  const int g = (int)(tok / S);
-  const T* slab = buf + (long long)g * E * C * D + d0;
+  const T* slab = buf + (tok / S) * sg + d0;
   float acc[VEC];
 #pragma unroll
   for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
-  for (int k0 = 0; k0 < K; k0 += kBatch) {
-    const int n = min(kBatch, K - k0);
-    long long off[kBatch];
-    float wk[kBatch];
+  for (int k = 0; k < K; ++k) {
+    const long long j = tok * K + k;
+    const int e = min(max(eid[j], 0), E - 1);
+    const int p = min(max(pos[j], 0), C - 1);
+    const float wk = w[j];
+    const Vec<T, VEC> a =
+        *reinterpret_cast<const Vec<T, VEC>*>(slab + e * se + p * sc);
 #pragma unroll
-    for (int b = 0; b < kBatch; ++b) {
-      if (b < n) {
-        const long long j = tok * K + k0 + b;
-        const int e = min(max(eid[j], 0), E - 1);
-        const int p = min(max(pos[j], 0), C - 1);
-        off[b] = ((long long)e * C + p) * D;
-        wk[b] = w[j];
-      }
-    }
-    Vec<T, VEC> a[kBatch];
-#pragma unroll
-    for (int b = 0; b < kBatch; ++b)
-      if (b < n) a[b] = *reinterpret_cast<const Vec<T, VEC>*>(slab + off[b]);
-#pragma unroll
-    for (int b = 0; b < kBatch; ++b) {
-      if (b < n) {
-#pragma unroll
-        for (int i = 0; i < VEC; ++i)
-          acc[i] = __fadd_rn(acc[i], __fmul_rn(to_f32(a[b].v[i]), wk[b]));
-      }
-    }
+    for (int i = 0; i < VEC; ++i)
+      acc[i] = __fadd_rn(acc[i], __fmul_rn(to_f32(a.v[i]), wk));
   }
   Vec<T, VEC> o;
 #pragma unroll
@@ -159,11 +141,13 @@ cudaError_t launch_dispatch(const void* x, const void* slot_src,
 template <typename T>
 cudaError_t launch_combine(const void* buf, const void* eid, const void* pos,
                            const void* w, void* out, int G, int S, int K,
-                           int E, int C, int D, cudaStream_t stream) {
+                           int E, int C, int D, long long sg, long long se,
+                           long long sc, cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
   const long long toks = (long long)G * S;
   if (toks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const bool vec = D % kVec == 0 && aligned16(buf) && aligned16(out);
+  const bool vec = D % kVec == 0 && sg % kVec == 0 && se % kVec == 0 &&
+                   sc % kVec == 0 && aligned16(buf) && aligned16(out);
   const int per_block = kThreads * (vec ? kVec : 1);
   const dim3 grid((unsigned)toks, (D + per_block - 1) / per_block);
   if (grid.y > 65535) return cudaErrorInvalidValue;
@@ -173,11 +157,11 @@ cudaError_t launch_combine(const void* buf, const void* eid, const void* pos,
   const float* ws = static_cast<const float*>(w);
   T* o = static_cast<T*>(out);
   if (vec)
-    combine_kernel<T, kVec><<<grid, kThreads, 0, stream>>>(b, e, p, ws, o, S,
-                                                          K, E, C, D);
+    combine_kernel<T, kVec><<<grid, kThreads, 0, stream>>>(
+        b, e, p, ws, o, S, K, E, C, D, sg, se, sc);
   else
-    combine_kernel<T, 1><<<grid, kThreads, 0, stream>>>(b, e, p, ws, o, S, K,
-                                                       E, C, D);
+    combine_kernel<T, 1><<<grid, kThreads, 0, stream>>>(
+        b, e, p, ws, o, S, K, E, C, D, sg, se, sc);
   return cudaGetLastError();
 }
 
@@ -187,6 +171,8 @@ extern "C" {
 
 // Both return a cudaError_t (0 = launched).  dtype: 0 = float32,
 // 1 = bfloat16 (x/buf and out share it); indices are int32, weights float32.
+// x and out are contiguous; buf's rows are, and sg/se/sc are its g/e/c
+// strides in elements.
 int moe_dispatch(const void* x, const void* slot_src, const void* slot_w,
                  void* out, int G, int S, int E, int C, int D, int dtype,
                  void* stream) {
@@ -204,16 +190,17 @@ int moe_dispatch(const void* x, const void* slot_src, const void* slot_w,
 
 int moe_combine(const void* buf, const void* eid, const void* pos,
                 const void* w, void* out, int G, int S, int K, int E, int C,
-                int D, int dtype, void* stream) {
+                int D, long long sg, long long se, long long sc, int dtype,
+                void* stream) {
   if (G <= 0 || S <= 0 || K <= 0 || E <= 0 || C <= 0 || D <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)launch_combine<float>(buf, eid, pos, w, out, G, S, K, E, C, D,
-                                      s);
+                                      sg, se, sc, s);
   if (dtype == 1)
     return (int)launch_combine<__nv_bfloat16>(buf, eid, pos, w, out, G, S, K,
-                                              E, C, D, s);
+                                              E, C, D, sg, se, sc, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -115,7 +115,8 @@ def _kernel_fns():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.moe_dispatch.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
         lib.moe_dispatch.restype = i32
-        lib.moe_combine.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
+        lib.moe_combine.argtypes = ([ptr] * 5 + [i32] * 6
+                                    + [ctypes.c_longlong] * 3 + [i32, ptr])
         lib.moe_combine.restype = i32
         lib.moe_error_string.argtypes = [i32]
         lib.moe_error_string.restype = ctypes.c_char_p
@@ -123,7 +124,10 @@ def _kernel_fns():
     return _FNS
 
 
-def _check_tensors(name: str, data, ints, floats) -> None:
+def _check_tensors(name: str, data, ints, floats, *,
+                   strided_data: bool = False) -> None:
+    """``strided_data``: ``data`` may be any view whose last axis is
+    contiguous (the kernel reads it through its strides)."""
     tensors = (data, *ints, *floats)
     if not all(t.is_cuda for t in tensors):
         raise ValueError(f"{name} takes CUDA tensors only")
@@ -135,8 +139,12 @@ def _check_tensors(name: str, data, ints, floats) -> None:
                          "or bfloat16")
     if any(t.dtype != torch.int32 for t in ints):
         raise ValueError(f"{name}: index tensors must be int32")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name}: tensors must be contiguous")
+    dense = (*ints, *floats) if strided_data else tensors
+    if not all(t.is_contiguous() for t in dense) or (
+            strided_data and data.stride(-1) != 1):
+        raise ValueError(f"{name}: tensors must be contiguous"
+                         + (" (the data along its last axis)"
+                            if strided_data else ""))
 
 
 def _launched(name: str, err: int, shape) -> None:
@@ -188,11 +196,13 @@ def moe_combine_cuda(buf, eid, pos, w):
     Same contract as :func:`combine_slot` (buf float32 or bfloat16,
     ``eid``/``pos`` int32; ``w`` is taken in float32, as the TPU kernel
     takes it), summing over k in order into a float32 accumulator and
-    casting once.  CUDA tensors only; raises on anything the kernel does
+    casting once.  ``buf`` may be a strided view (the expert product's
+    permuted output) as long as its D axis is contiguous.  CUDA tensors only; raises on anything the kernel does
     not take, when the launch is refused, and under autograd.
     ``moe_combine_cuda.launches`` counts the launches."""
     w = w.to(torch.float32)
-    _check_tensors("moe_combine_cuda", buf, (eid, pos), (w,))
+    _check_tensors("moe_combine_cuda", buf, (eid, pos), (w,),
+                   strided_data=True)
     if buf.dim() != 4 or eid.dim() != 3 or not (
             eid.shape == pos.shape == w.shape):
         raise ValueError(
@@ -209,8 +219,8 @@ def moe_combine_cuda(buf, eid, pos, w):
     with torch.cuda.device(buf.device):
         stream = torch.cuda.current_stream(buf.device).cuda_stream
         err = fn(buf.data_ptr(), eid.data_ptr(), pos.data_ptr(), w.data_ptr(),
-                 out.data_ptr(), G, S, K, E, C, D, _KERNEL_DTYPES[buf.dtype],
-                 stream)
+                 out.data_ptr(), G, S, K, E, C, D, *buf.stride()[:3],
+                 _KERNEL_DTYPES[buf.dtype], stream)
     _launched("moe_combine", err, out.shape)
     moe_combine_cuda.launches += 1
     return out

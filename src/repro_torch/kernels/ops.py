@@ -81,7 +81,5 @@ def moe_combine(buf, eid, pos, w, *, impl: str = "auto"):
     """Gate-weighted combine (G,E,C,D) → (G,S,D); eid/pos/w: (G, S, K).
     Same ``impl`` choices as :func:`moe_dispatch`."""
     if _moe_impl(impl, buf) == "cuda":
-        # the expert einsum leaves its (G, E, C, D) output as a permuted
-        # view of a batched matmul; the kernel reads a contiguous slab
-        return moe_k.moe_combine_cuda(buf.contiguous(), eid, pos, w)
+        return moe_k.moe_combine_cuda(buf, eid, pos, w)
     return moe_k.combine_slot(buf, eid, pos, w)

@@ -225,14 +225,14 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
 def _ffn_block(cfg, spec: LayerSpec, p, x):
     """norm2 → dense or MoE FFN → (post-norm) → residual.  The MoE routes
     each sequence as one group (prefill: S tokens; decode: 1) through
-    ``cfg.moe_impl``; its aux loss is a training term and is dropped."""
+    ``cfg.moe_impl``; its aux loss is a training term, not computed here."""
     if spec.ffn == "none":
         return x
     h = _norm(cfg, p["norm2"], x)
     if spec.ffn == "moe":
-        y, _ = moe_mod.moe_ffn(p["ffn"], h, top_k=cfg.moe_top_k,
-                               capacity_factor=cfg.moe_capacity_factor,
-                               impl=cfg.moe_impl)
+        y = moe_mod.moe_forward(p["ffn"], h, top_k=cfg.moe_top_k,
+                                capacity_factor=cfg.moe_capacity_factor,
+                                impl=cfg.moe_impl)
     else:
         y = moe_mod.dense_ffn(p["ffn"], h)
     if spec.post_norm:

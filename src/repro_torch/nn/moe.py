@@ -120,15 +120,9 @@ def ref_combine(buf, eid_f, safe_pos, w, *, top_k: int):
     return (y_f * w[..., None].to(y_f.dtype)).reshape(G, S, K, D).sum(2)
 
 
-def moe_ffn(p, x, *, top_k: int, capacity_factor: float = 1.25,
-            impl: str = "auto"):
-    """x: (B, S, D) → (y (B, S, D), aux) with aux the load-balance loss
-    terms ``{"aux_loss", "dropped"}`` (tensors; reading them syncs).
-
-    Each sequence is a routing group with capacity
-    C = :func:`moe_capacity` (S, E, K, cf).  ``impl``: ``ref`` is the
-    scatter/gather oracle; ``auto``/``slot``/``cuda`` route the data
-    movement through :mod:`repro_torch.kernels.ops`."""
+def _moe(p, x, *, top_k: int, capacity_factor: float, impl: str):
+    """Route, dispatch, expert SwiGLU and combine: ``(y, probs, eid_f,
+    keep)``, the routing kept for :func:`moe_ffn`'s aux terms."""
     B, S, D = x.shape
     E = p["router"].shape[1]
     K = top_k
@@ -160,9 +154,33 @@ def moe_ffn(p, x, *, top_k: int, capacity_factor: float = 1.25,
         y = kops.moe_combine(out, eid_f.reshape(B, S, K),
                              safe_pos.reshape(B, S, K), w.reshape(B, S, K),
                              impl=impl)
+    return y, probs, eid_f, keep
+
+
+def moe_forward(p, x, *, top_k: int, capacity_factor: float = 1.25,
+                impl: str = "auto"):
+    """x: (B, S, D) → y (B, S, D): :func:`moe_ffn` without the aux-loss
+    terms, which serving never reads (so it never computes them)."""
+    return _moe(p, x, top_k=top_k, capacity_factor=capacity_factor,
+                impl=impl)[0]
+
+
+def moe_ffn(p, x, *, top_k: int, capacity_factor: float = 1.25,
+            impl: str = "auto"):
+    """x: (B, S, D) → (y (B, S, D), aux) with aux the load-balance loss
+    terms ``{"aux_loss", "dropped"}`` (tensors; reading them syncs).
+
+    Each sequence is a routing group with capacity
+    C = :func:`moe_capacity` (S, E, K, cf).  ``impl``: ``ref`` is the
+    scatter/gather oracle; ``auto``/``slot``/``cuda`` route the data
+    movement through :mod:`repro_torch.kernels.ops`."""
+    y, probs, eid_f, keep = _moe(p, x, top_k=top_k,
+                                 capacity_factor=capacity_factor, impl=impl)
+    B, S, _ = x.shape
+    E = p["router"].shape[1]
 
     # Switch-style load-balance aux loss
-    eid = eid_f.reshape(B, S, K)
+    eid = eid_f.reshape(B, S, top_k)
     density = F.one_hot(eid[..., 0].long(), E).float().mean((0, 1))
     mean_prob = probs.mean((0, 1))
     aux = E * torch.sum(density * mean_prob)

@@ -169,6 +169,24 @@ def test_moe_kernels_match_slot_versions(cuda, dtype, G, S, D, E, K, cf):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,S,D,E,K,cf", [MOE_CASES[0], MOE_CASES[4],
+                                          MOE_CASES[5]])
+def test_moe_combine_reads_a_strided_slab(cuda, dtype, G, S, D, E, K, cf):
+    """The expert product leaves its (G, E, C, D) output as a view of
+    (E, G, C, D) storage; combine reads it through its strides, with no
+    copy, and agrees with the plain version on the contiguous slab."""
+    x, src, sw, eid, pos, w, C = _moe_inputs(G, S, D, E, K, cf, dtype, cuda)
+    buf = mk.dispatch_slot(x, src, sw)
+    strided = buf.transpose(0, 1).contiguous().transpose(0, 1)
+    assert not strided.is_contiguous()
+    got = mk.moe_combine_cuda(strided, eid, pos, w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(),
+                               mk.combine_slot(buf, eid, pos, w).float(),
+                               atol=MOE_TOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_moe_kernels_clamp_out_of_range_indices(cuda, dtype):
     """Source rows, expert ids and positions outside the arrays (negative
     or past the end) are clamped into them, as the plain versions clamp,
@@ -253,3 +271,6 @@ def test_moe_kernels_reject_what_they_do_not_take(cuda):
     buf = mk.moe_dispatch_cuda(x, src, sw)
     with pytest.raises(ValueError, match="eid/pos/w"):
         mk.moe_combine_cuda(buf, eid, pos[..., :1].contiguous(), w)
+    with pytest.raises(ValueError, match="last axis"):
+        mk.moe_combine_cuda(buf.transpose(2, 3).contiguous().transpose(2, 3),
+                            eid, pos, w)

@@ -250,6 +250,18 @@ def test_moe_ffn_on_reduced_olmoe_layer_weights():
                                                    abs=1e-6)
 
 
+def test_moe_forward_is_moe_ffns_output():
+    """The serve path's ``moe_forward`` (no aux-loss work) gives exactly
+    ``moe_ffn``'s y, for every impl."""
+    p, x, _ = _setup(2, 24, 16, 4, 2, 1.25)
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    for impl in ("auto", "slot", "ref"):
+        y, _ = tmoe.moe_ffn(tp, torch.from_numpy(x), top_k=2, impl=impl)
+        torch.testing.assert_close(
+            tmoe.moe_forward(tp, torch.from_numpy(x), top_k=2, impl=impl), y,
+            atol=0, rtol=0)
+
+
 def test_moe_route_has_no_host_sync_ops():
     """moe_route / slot_maps give tensors, never Python numbers: the
     routing of a decode step stays on the device."""
