@@ -8,7 +8,7 @@ result lines:
 
 1. device  — the card's name, count, and ``nvidia-smi``'s name and power
              limit;
-2. build   — builds the CUDA kernels of the serve paths
+2. build   — builds the CUDA kernels of the serve and train paths
              (``src/repro_torch/kernels/csrc/*.cu``), one nvcc each, all
              started together;
 3. kernels — each kernel against its plain PyTorch version on the card:
@@ -17,12 +17,19 @@ result lines:
              (atol 2e-2); MoE dispatch and combine at the reference test
              sweep, olmoe-1b-7b's decode and prefill shapes and with
              out-of-range indices, float32 (atol 1e-5) and bfloat16
-             (atol 5e-2);
+             (atol 5e-2); the MoE autograd Functions' dx / dbuf / dw
+             against autograd of the slot versions at olmoe's prefill
+             shape (atol 1e-5, dw 1e-4); flash attention forward at the
+             reference sweep and partial tiles (float32 atol 2e-5,
+             bfloat16 2e-2) and its dq / dk / dv against autograd of the
+             plain version (float32 atol 1e-4 rtol 1e-4, bfloat16 atol
+             5e-2 rtol 1.6e-2);
 4. serve   — ``serve_continuous`` of llama3.2-1b at full width (16
              layers, d_model 2048, random weights from a seed, float32) on
              a mix of prompts of 64-512 tokens, counting kernel launches
-             (must be 16 per decode step), plus a teacher-forced
-             ``decode_step`` through the kernel and through the gather;
+             (paged decode 16 per decode step, flash forward 16 per
+             prefill), plus a teacher-forced ``decode_step`` through the
+             kernel and through the gather;
 5. profile — host clock vs profiled device time of full-width llama
              decode steps (device idle share, launches per step);
 6. moe     — the same mix served by olmoe-1b-7b at full width (16 layers,
@@ -31,9 +38,19 @@ result lines:
              decode step), a teacher-forced prefill and ``decode_step``
              through the kernels against the plain versions, and a
              profiled decode step split by kernel;
-7. timing  — each kernel at its serve shapes beside its bound, its plain
-             version and, where one exists, a library call (CUDA events,
-             median of repeats, L2 flushed).
+7. train   — ``train("llama3.2-1b", reduced=False)`` on the card, float32
+             with AdamW state on the card: 3 steps of 8 x 2048 tokens in
+             microbatches of 4, counting the flash launches of every layer
+             per step (forward twice: forward and remat recompute), finite
+             losses and grad norms, peak memory;
+8. teacher — one ``loss_fn`` and its gradients through the kernels against
+             the plain versions on the card: llama3.2-1b and olmoe-1b-7b at
+             full width and 2 layers;
+9. train profile — one profiled full-width llama train step: host clock,
+             device busy split by kernel, idle share;
+10. timing — each kernel at its main path's shapes beside its bound, its
+             plain version and, where one exists, a library call (CUDA
+             events, median of repeats, L2 flushed or exceeded).
 
 It then prints one ``{"kernels": [...]}`` JSON line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Imports neither jax nor the JAX
@@ -44,6 +61,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -57,7 +75,10 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 F32_FLOPS = 67e12                # H100 SXM float32 outside the tensor cores
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 MOE_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
-KERNELS = ("paged_decode", "moe")           # csrc/<name>.cu
+BF16_TC_FLOPS = 989e12           # H100 SXM dense bfloat16 tensor cores
+KERNELS = ("paged_decode", "moe", "flash_attention")   # csrc/<name>.cu
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+FLASH_BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (5e-2, 1.6e-2)}
 
 
 def say(phase: str, msg: str) -> None:
@@ -245,6 +266,146 @@ def phase_moe_kernels(torch, mk):
     return worst
 
 
+def phase_moe_backward(torch, mk):
+    """The MoE autograd Functions (``kernels.ops.moe_dispatch`` /
+    ``moe_combine`` with ``impl="cuda"``) against autograd of the slot
+    versions at olmoe-1b-7b's 512-token prefill shape, float32: dx through
+    dispatch's backward (the combine kernel), dbuf through combine's
+    backward (the dispatch kernel) at atol 1e-5, dw (a gather-dot over D =
+    2048 in another order) at atol 1e-4.  dw of a dropped pair is 0 (the
+    reference's backward masks it by keep)."""
+    from repro_torch.kernels import ops
+    from repro_torch.nn import moe as nn_moe
+
+    G, S, D, E, K = 1, 512, 2048, 64, 8
+    g = torch.Generator(device="cuda")
+    g.manual_seed(21)
+    x = torch.randn((G, S, D), generator=g, device="cuda")
+    router = torch.randn((D, E), generator=g, device="cuda") / D ** 0.5
+    C = nn_moe.moe_capacity(S, E, K, 1.25)
+    _, gate, eid, pos, keep = nn_moe.moe_route(router, x, top_k=K,
+                                               capacity=C)
+    wtok = keep.to(torch.float32)
+    w = (gate.reshape(G, S * K) * keep).reshape(G, S, K)
+    safe = torch.where(keep, pos, 0).reshape(G, S, K)
+    g_buf = torch.randn((G, E, C, D), generator=g, device="cuda")
+    g_y = torch.randn((G, S, D), generator=g, device="cuda")
+
+    def grads(impl):
+        xi = x.clone().requires_grad_(True)
+        buf = ops.moe_dispatch(xi, eid, pos, wtok, num_experts=E, capacity=C,
+                               top_k=K, impl=impl)
+        (dx,) = torch.autograd.grad(buf, (xi,), g_buf)
+        b = buf.detach().clone().requires_grad_(True)
+        wi = w.clone().requires_grad_(True)
+        y = ops.moe_combine(b, eid.reshape(G, S, K), safe, wi, impl=impl)
+        dbuf, dw = torch.autograd.grad(y, (b, wi), g_y)
+        return dx, dbuf, torch.where(keep.reshape(G, S, K), dw, 0.0)
+
+    n0 = (mk.moe_dispatch_cuda.launches, mk.moe_combine_cuda.launches)
+    got = grads("cuda")
+    check((mk.moe_dispatch_cuda.launches - n0[0],
+           mk.moe_combine_cuda.launches - n0[1]) == (2, 2),
+          "the MoE Functions' backward did not launch the other kernel")
+    want = grads("slot")
+    torch.cuda.synchronize()
+    errs = {}
+    for name, a, b, atol in zip(("dx", "dbuf", "dw"), got, want,
+                                (1e-5, 1e-5, 1e-4)):
+        check(bool(torch.isfinite(a).all()), f"MoE backward {name}: "
+              "non-finite")
+        errs[name] = (a - b).abs().max().item()
+        check(errs[name] <= atol, f"MoE backward {name}: max|Function - "
+              f"slot autograd| {errs[name]:.3e} > {atol:.0e}")
+    say("kernels", f"MoE backward at olmoe prefill G1 S512 E64 K8 C{C}: "
+        f"max|err| dx {errs['dx']:.3e}, dbuf {errs['dbuf']:.3e} (atol 1e-5; "
+        f"dispatch's backward is the combine kernel and back), dw "
+        f"{errs['dw']:.3e} (atol 1e-4)")
+    return errs
+
+
+#: (label, B, H, Sq, Sk, hd, causal, window, softcap): the reference sweep
+#: (tests/test_kernels.py: shapes, windows 32/100/128, softcap 50, non
+#: causal, cross lengths), partial tiles, windows that leave rows with no
+#: key, and the shapes train() feeds the kernels (llama3.2-1b's microbatch
+#: of 4, olmoe-1b-7b's heads)
+FLASH_CASES = [
+    ("test B1 H1 S128 hd64", 1, 1, 128, 128, 64, True, None, None),
+    ("test B2 H2 S256 hd64", 2, 2, 256, 256, 64, True, None, None),
+    ("test B1 H2 S384 hd128", 1, 2, 384, 384, 128, True, None, None),
+    ("test B1 H1 S128 hd256", 1, 1, 128, 128, 256, True, None, None),
+    ("test window 32", 1, 2, 256, 256, 64, True, 32, None),
+    ("test window 100", 1, 2, 256, 256, 64, True, 100, None),
+    ("test window 128", 1, 2, 256, 256, 64, True, 128, None),
+    ("test softcap 50", 1, 1, 128, 128, 64, True, None, 50.0),
+    ("test non-causal Sk256", 2, 1, 128, 256, 64, False, None, None),
+    ("test cross Sk384", 1, 2, 128, 384, 64, False, None, None),
+    ("causal S200 (not a multiple of 128)", 1, 4, 200, 200, 64, True, None,
+     None),
+    ("causal S300 hd128 window 40 softcap 30", 1, 2, 300, 300, 128, True,
+     40, 30.0),
+    ("non-causal Sq256 Sk128 window 20 (rows 147.. see no key)", 1, 2, 256,
+     128, 64, False, 20, None),
+    ("causal Sq200 Sk64 hd128 window 16 softcap 30 (rows 79.. see no key)",
+     1, 2, 200, 64, 128, True, 16, 30.0),
+    ("llama train B4 H32 S2048 hd64", 4, 32, 2048, 2048, 64, True, None,
+     None),
+    ("olmoe train B1 H4 S512 hd128", 1, 4, 512, 512, 128, True, None, None),
+]
+
+
+def phase_flash_kernels(torch, fk):
+    """The flash forward against ``flash_attention_ref`` and the backward
+    (dK/dV pass, then dQ pass) against autograd of it, on the same inputs.
+    Returns each entry point's worst error per dtype."""
+    worst = {n: {"float32": 0.0, "bfloat16": 0.0}
+             for n in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")}
+    for label, B, H, Sq, Sk, hd, causal, window, cap in FLASH_CASES:
+        kw = {"causal": causal, "window": window, "softcap": cap}
+        for dname in ("float32", "bfloat16"):
+            dt = getattr(torch, dname)
+            g = torch.Generator(device="cuda")
+            g.manual_seed(len(label))
+            q, k, v = (torch.randn(s, generator=g, device="cuda").to(dt)
+                       for s in ((B, H, Sq, hd), (B, H, Sk, hd),
+                                 (B, H, Sk, hd)))
+            do = torch.randn((B, H, Sq, hd), generator=g,
+                             device="cuda").to(dt)
+            o, lse = fk.flash_fwd_cuda(q, k, v, **kw)
+            want = fk.flash_attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(o.float()).all()),
+                  f"flash {label} {dname}: non-finite output")
+            err = (o.float() - want.float()).abs().max().item()
+            worst["flash_fwd"][dname] = max(worst["flash_fwd"][dname], err)
+            check(err <= FLASH_TOL[dname], f"flash {label} {dname}: "
+                  f"max|kernel-plain| {err:.3e} > {FLASH_TOL[dname]:.0e}")
+            dk, dv, delta = fk.flash_bwd_dkdv_cuda(q, k, v, o, lse, do, **kw)
+            dq = fk.flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
+            qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            ref = torch.autograd.grad(fk.flash_attention_ref(*qkv, **kw),
+                                      qkv, do)
+            torch.cuda.synchronize()
+            atol, rtol = FLASH_BWD_TOL[dname]
+            for name, a, b in (("dq", dq, ref[0]), ("dk", dk, ref[1]),
+                               ("dv", dv, ref[2])):
+                a, b = a.float(), b.float()
+                check(bool(torch.isfinite(a).all()),
+                      f"flash {label} {dname}: non-finite {name}")
+                bad = (a - b).abs() - (atol + rtol * b.abs())
+                check(bool((bad <= 0).all()), f"flash {label} {dname}: {name}"
+                      f" off by {bad.max().item() + atol:.3e} beyond atol "
+                      f"{atol:.0e} rtol {rtol:.1e}")
+                entry = "flash_bwd_dq" if name == "dq" else "flash_bwd_dkdv"
+                worst[entry][dname] = max(worst[entry][dname],
+                                          (a - b).abs().max().item())
+        say("kernels", f"flash forward + backward ok: {label}")
+    for name, err in worst.items():
+        say("kernels", f"{name} max|err| float32 {err['float32']:.3e}, "
+            f"bfloat16 {err['bfloat16']:.3e}")
+    return worst
+
+
 # --------------------------------------------------------------------------
 # phases 4 and 6: the main paths
 # --------------------------------------------------------------------------
@@ -309,6 +470,18 @@ def first_tokens(torch, lg, plens, vocab):
                         for b, n in enumerate(plens)]).to(torch.int32)[:, None]
 
 
+def check_prefill_flash(launches, layers, prefills, arch):
+    """Every causal prefill runs the flash forward once per layer; serving
+    runs no backward."""
+    check(launches["flash_fwd"] == layers * prefills,
+          f"{arch}: flash_fwd launches {launches['flash_fwd']} != {layers} x "
+          f"{prefills} prefills")
+    check(launches["flash_bwd_dkdv"] == launches["flash_bwd_dq"] == 0,
+          f"{arch}: serving launched a flash backward")
+    say("serve", f"{arch}: flash_fwd launches = {layers} x {prefills} "
+        f"prefills = {launches['flash_fwd']}")
+
+
 def phase_serve(torch, counters):
     from repro_torch.configs import get_config
     from repro_torch.models import decoder as dec
@@ -326,6 +499,7 @@ def phase_serve(torch, counters):
     check(launches["paged_decode"] == layers * steps,
           f"paged_decode launches {launches['paged_decode']} != {layers} x "
           f"{steps} steps")
+    check_prefill_flash(launches, layers, out["prefills"], "llama3.2-1b")
 
     # teacher-forced: one decode step on one cache, kernel vs gather
     plens = [512, 300, 150, 77]
@@ -355,12 +529,13 @@ def phase_moe(torch, counters):
     prefill and decode step through the kernels and the plain versions."""
     from repro_torch.configs import get_config
     from repro_torch.models import decoder as dec
+    from repro_torch.tree import tree_leaves
 
     cfg = get_config("olmoe-1b-7b", reduced=False)
     t0 = time.perf_counter()
     params = dec.init_model(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
-    n_par = sum(t.numel() for t in _leaves(params))
+    n_par = sum(t.numel() for t in tree_leaves(params))
     say("moe", f"olmoe-1b-7b full width: {cfg.num_layers} layers, d_model "
         f"{cfg.d_model}, {cfg.moe_experts} experts top-{cfg.moe_top_k}, "
         f"expert d_ff {cfg.moe_d_ff}, vocab {cfg.vocab}; {n_par} float32 "
@@ -375,16 +550,18 @@ def phase_moe(torch, counters):
     check(launches["paged_decode"] == layers * steps,
           f"paged_decode launches {launches['paged_decode']} != {layers} x "
           f"{steps} steps")
+    check_prefill_flash(launches, layers, pre, "olmoe-1b-7b")
     say("moe", f"launches: moe_dispatch = moe_combine = {layers} x ({steps} "
         f"+ {pre}) = {launches['moe_dispatch']}, paged_decode = {layers} x "
         f"{steps} = {launches['paged_decode']}")
 
     # teacher-forced: batched prefill (one routing group of up to 512
     # tokens per sequence, drops included) and one decode step, through
-    # the kernels and through moe_impl="slot" + the gather
+    # the kernels and through moe_impl="slot", attn_impl="ref" (the plain
+    # flash attention) and the gather
     plens = [512, 300, 150, 77]
     cfg_p = dataclasses.replace(cfg, kv_impl="paged")
-    cfg_s = dataclasses.replace(cfg_p, moe_impl="slot")
+    cfg_s = dataclasses.replace(cfg_p, moe_impl="slot", attn_impl="ref")
     cache, prompts, lens = teacher_forced_inputs(torch, dec, cfg_p, plens)
     cache_s, _, _ = teacher_forced_inputs(torch, dec, cfg_p, plens)
     d0 = counters["moe_dispatch"].launches
@@ -404,8 +581,9 @@ def phase_moe(torch, counters):
     db, _ = dec.decode_step(params, cfg_s, tok, cache,
                             compute_dtype=torch.float32, impl="gather")
     torch.cuda.synchronize()
-    check(all(fn.launches - n0[k] == layers for k, fn in counters.items()),
-          "decode_step did not launch every kernel in every layer")
+    check(all(counters[k].launches - n0[k] == layers
+              for k in ("paged_decode", "moe_dispatch", "moe_combine")),
+          "decode_step did not launch every decode kernel in every layer")
     check(bool(torch.isfinite(da).all()), "non-finite olmoe decode logits")
     errs.append((da - db).abs().max().item())
     check(max(errs) <= 1e-3, f"olmoe teacher-forced logits, kernels vs plain "
@@ -414,14 +592,6 @@ def phase_moe(torch, counters):
         f"kernels vs plain versions: max|dlogit| prefill {errs[0]:.3e}, "
         f"decode {errs[1]:.3e} (atol 1e-3)")
     return launches, (params, cfg_p, cache, tok)
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        return [t for v in tree.values() for t in _leaves(v)]
-    if isinstance(tree, (tuple, list)):
-        return [t for v in tree for t in _leaves(v)]
-    return [tree]
 
 
 # --------------------------------------------------------------------------
@@ -433,14 +603,41 @@ def _leaves(tree):
 PROFILE_SPLIT = (("paged_decode", ("paged_decode",)),
                  ("moe_dispatch", ("dispatch_kernel",)),
                  ("moe_combine", ("combine_kernel",)),
-                 ("matmul", ("gemm", "gemv")))
+                 ("flash_fwd", ("fwd_kernel",)),
+                 ("flash_bwd", ("dkdv_kernel", "delta_kernel", "dq_kernel")),
+                 ("matmul", ("gemm", "gemv")),
+                 ("copies", ("copy",)))
+
+
+def device_split(torch, prof, steps: int, label: str):
+    """(device busy ms, {kernel group: ms}, kernel launches) per step from
+    a ``torch.profiler`` run of ``steps`` steps."""
+    from torch.autograd import DeviceType
+
+    split = {name: 0.0 for name, _ in PROFILE_SPLIT}
+    split["rest"] = 0.0
+    dev_us, launches = 0.0, 0
+    for e in prof.key_averages():
+        if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                     "cuLaunchKernelEx", "cudaLaunchKernelExC"):
+            launches += e.count
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t = e.self_device_time_total
+        dev_us += t
+        key = e.key.lower()
+        name = next((n for n, frags in PROFILE_SPLIT
+                     if any(f in key for f in frags)), "rest")
+        split[name] += t
+    check(dev_us > 0, f"{label}: the profiler saw no device time")
+    return (dev_us / 1e3 / steps,
+            {n: t / 1e3 / steps for n, t in split.items()}, launches / steps)
 
 
 def phase_profile(torch, state, label: str, steps: int = 8):
     """Host clock of ``steps`` decode steps at full width (4 slots, KV
     lengths 77-512) beside the device time the profiler sees in them,
     split by kernel."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import decoder as dec
@@ -459,30 +656,195 @@ def phase_profile(torch, state, label: str, steps: int = 8):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run()
-    split = {name: 0.0 for name, _ in PROFILE_SPLIT}
-    split["rest"] = 0.0
-    dev_us, launches = 0.0, 0
-    for e in prof.key_averages():
-        if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                     "cuLaunchKernelEx", "cudaLaunchKernelExC"):
-            launches += e.count
-        if e.device_type != DeviceType.CUDA:
-            continue
-        t = e.self_device_time_total
-        dev_us += t
-        key = e.key.lower()
-        name = next((n for n, frags in PROFILE_SPLIT
-                     if any(f in key for f in frags)), "rest")
-        split[name] += t
-    check(dev_us > 0, f"{label}: the profiler saw no device time")
-    dev_ms = dev_us / 1e3 / steps
+    dev_ms, split, launches = device_split(torch, prof, steps, label)
     idle = 1.0 - dev_ms / wall_ms
-    parts = ", ".join(f"{n} {t / 1e3 / steps:.3f}" for n, t in split.items()
+    parts = ", ".join(f"{n} {t:.3f}" for n, t in split.items()
                       if t or n in ("matmul", "paged_decode", "rest"))
     say("profile", f"{label} decode step at full width, 4 slots: host clock "
         f"{wall_ms:.2f} ms/step; device busy {dev_ms:.3f} ms/step ({parts}); "
-        f"device idle share {idle:.3f}; {launches / steps:.0f} kernel "
+        f"device idle share {idle:.3f}; {launches:.0f} kernel "
         f"launches/step")
+
+
+# --------------------------------------------------------------------------
+# phases 7-9: training
+# --------------------------------------------------------------------------
+
+#: llama3.2-1b's training run: steps, batch, sequence, microbatch
+TRAIN = (3, 8, 2048, 4)
+
+
+def _batch_on_card(torch, ds, step):
+    return {k: torch.from_numpy(v).to("cuda")
+            for k, v in ds.batch(step).items()}
+
+
+def phase_train(torch, counters):
+    """``train("llama3.2-1b", reduced=False)`` on the card: 1.24 B float32
+    parameters with their gradients and AdamW moments on the card, 3 steps
+    of 8 x 2048 tokens in microbatches of 4.  Each layer of each
+    microbatch launches the flash forward twice (the forward, and its
+    recompute under per-layer remat in the backward pass) and each
+    backward pass once."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+
+    steps, batch, seq, micro = TRAIN
+    layers = get_config("llama3.2-1b", reduced=False).num_layers
+    n_micro = batch // micro
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train("llama3.2-1b", reduced=False, device="cuda", steps=steps,
+                batch=batch, seq=seq, microbatch=micro, log_every=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    per_step = {"flash_fwd": 2 * layers * n_micro,
+                "flash_bwd_dkdv": layers * n_micro,
+                "flash_bwd_dq": layers * n_micro}
+    for name, n in per_step.items():
+        check(launches[name] == steps * n, f"train: {name} launches "
+              f"{launches[name]} != {steps} steps x {n}")
+    check(all(launches[k] == 0 for k in counters if k not in per_step),
+          f"train: unexpected launches {launches}")
+    check(all(math.isfinite(x) for x in out["losses"] + out["grad_norms"]),
+          f"train: non-finite loss or grad norm {out}")
+    check(out["devices"] == ["cuda:0"],
+          f"train: parameters or optimizer state on {out['devices']}")
+    say("train", f"llama3.2-1b full width: {out['params']} float32 "
+        f"parameters, {steps} steps of {batch} x {seq} tokens in "
+        f"microbatches of {micro}; losses "
+        f"{[round(x, 4) for x in out['losses']]}, grad norms "
+        f"{[round(x, 4) for x in out['grad_norms']]}; state on "
+        f"{out['devices']}")
+    say("train", f"launches per step: flash_fwd {launches['flash_fwd'] // steps}"
+        f" = 2 x {layers} layers x {n_micro} microbatches, flash_bwd_dkdv "
+        f"{launches['flash_bwd_dkdv'] // steps}, flash_bwd_dq "
+        f"{launches['flash_bwd_dq'] // steps}; wall {wall:.1f} s incl. "
+        f"init, {out['seconds'] / steps:.2f} s/step; peak memory "
+        f"{peak:.2f} GB")
+    return launches, out, peak
+
+
+def phase_teacher(torch, counters):
+    """One ``loss_fn`` and its gradients through the kernels (flash forward
+    and backward; for OLMoE also the MoE Functions) against the plain
+    versions (``attn_impl="ref"``, ``moe_impl="slot"``) on the card, at full
+    width and 2 layers, float32: llama3.2-1b on 2 x 2048 tokens and
+    olmoe-1b-7b on 2 x 512.  Tolerance: the loss to 1e-5 relative, each
+    gradient leaf to 1e-3 of its largest entry (attention summed in
+    another order through two layers; routing is computed by the same
+    code on both sides).  OLMoE trains only at 2 layers on one card: its
+    6.9 B float32 parameters with gradients and two AdamW moments need
+    about 110 GB (16 bytes a parameter), more than the card's 80 GB."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokenDataset
+    from repro_torch.models import decoder as dec
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    by_arch = {}
+    for arch, B, S in (("llama3.2-1b", 2, 2048), ("olmoe-1b-7b", 2, 512)):
+        cfg = dataclasses.replace(get_config(arch, reduced=False), repeats=2)
+        params = dec.init_model(cfg, seed=0, device="cuda")
+        batch = _batch_on_card(torch, SyntheticTokenDataset(cfg.vocab, B, S),
+                               0)
+
+        def value_and_grads(cfg_x):
+            leaves = [t.detach().requires_grad_(True)
+                      for t in tree_leaves(params)]
+            loss = dec.loss_fn(tree_unflatten(params, leaves), cfg_x, batch,
+                               compute_dtype=torch.float32)
+            return loss.item(), torch.autograd.grad(loss, leaves)
+
+        n0 = {k: fn.launches for k, fn in counters.items()}
+        loss_k, g_k = value_and_grads(cfg)
+        n1 = {k: fn.launches for k, fn in counters.items()}
+        loss_r, g_r = value_and_grads(
+            dataclasses.replace(cfg, attn_impl="ref", moe_impl="slot"))
+        torch.cuda.synchronize()
+        launched = {k: n1[k] - n0[k] for k in counters}
+        check(all(fn.launches == n1[k] for k, fn in counters.items()),
+              f"{arch}: the plain run launched a kernel")
+        want = {"flash_fwd": 2 * cfg.num_layers,
+                "flash_bwd_dkdv": cfg.num_layers,
+                "flash_bwd_dq": cfg.num_layers}
+        if cfg.has_moe:
+            want.update(moe_dispatch=3 * cfg.num_layers,
+                        moe_combine=3 * cfg.num_layers)
+        check(all(launched[k] == want.get(k, 0) for k in counters),
+              f"{arch}: kernel launches {launched}, expected {want}")
+        check(math.isfinite(loss_k) and all(bool(torch.isfinite(g).all())
+                                            for g in g_k),
+              f"{arch}: non-finite loss or gradient")
+        dloss = abs(loss_k - loss_r)
+        rel = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                  for a, b in zip(g_k, g_r))
+        check(dloss <= 1e-5 * abs(loss_r), f"{arch}: loss through the kernels"
+              f" {loss_k} vs plain {loss_r}")
+        check(rel <= 1e-3, f"{arch}: a gradient leaf is off by {rel:.3e} of "
+              "its largest entry (> 1e-3)")
+        say("teacher", f"{arch} full width, 2 layers, {B} x {S} tokens: loss "
+            f"{loss_k:.6f} (kernels) vs {loss_r:.6f} (plain), |dloss| "
+            f"{dloss:.3e}; worst gradient leaf max|d| / max|g| {rel:.3e} "
+            f"(tol 1e-3); kernel launches {launched}")
+        by_arch[arch] = {"launches": launched, "dloss": dloss,
+                         "grad_rel": rel}
+        del params, g_k, g_r
+        torch.cuda.empty_cache()
+    return by_arch
+
+
+def phase_train_profile(torch):
+    """One full-width llama3.2-1b train step (the training run's shape,
+    through ``make_train_step`` as ``train()`` builds it) after two
+    unprofiled ones: host clock beside the device time split by kernel,
+    and every tensor of the step's state and metrics on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokenDataset
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    _, batch, seq, micro = TRAIN
+    cfg = get_config("llama3.2-1b", reduced=False)
+    params, opt = init_train_state(cfg, seed=0, device="cuda")
+    step = make_train_step(cfg, compute_dtype=torch.float32, microbatch=micro)
+    ds = SyntheticTokenDataset(cfg.vocab, batch, seq)
+    state = {"params": params, "opt": opt}
+
+    def run(i):
+        b = _batch_on_card(torch, ds, i)
+        state["params"], state["opt"], m = step(state["params"],
+                                                state["opt"], b)
+        torch.cuda.synchronize()
+        return m
+
+    run(0)
+    t0 = time.perf_counter()
+    run(1)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        m = run(2)
+    tensors = (tree_leaves(state["params"]) + tree_leaves(state["opt"])
+               + list(m.values()))
+    check(all(t.is_cuda for t in tensors), "train step: a tensor of the "
+          "state or metrics lies on the CPU")
+    dev_ms, split, launches = device_split(torch, prof, 1, "train step")
+    idle = 1.0 - dev_ms / wall_ms
+    parts = ", ".join(f"{n} {t:.1f}" for n, t in split.items()
+                      if t or n in ("matmul", "rest"))
+    say("profile", f"llama3.2-1b train step at full width, {batch} x {seq} "
+        f"tokens in microbatches of {micro}, float32: host clock "
+        f"{wall_ms:.1f} ms; device busy {dev_ms:.1f} ms ({parts}); device "
+        f"idle share {idle:.3f}; {launches:.0f} kernel launches; all "
+        f"{len(tensors)} state and metric tensors on the card")
+    return {"host_ms": wall_ms, "device_ms": dev_ms, "split_ms": split,
+            "idle": idle, "launches": launches}
 
 
 # --------------------------------------------------------------------------
@@ -654,6 +1016,99 @@ def phase_moe_timing(torch, mk):
     return res
 
 
+def phase_flash_timing(torch, fk):
+    """The three flash entry points at llama3.2-1b's training shape (one
+    microbatch: 4 x 32 heads x 2048 x hd 64, causal), float32 and bfloat16,
+    beside their bounds and plain versions, and the backward as a whole
+    (the dK/dV pass plus the dQ pass) beside its bound, the plain backward
+    and one library call.  The library call is
+    ``F.scaled_dot_product_attention``: its forward for the forward, its
+    autograd backward for the whole backward; timed only, used nowhere in
+    the port.  No library call computes one pass alone, so each pass's
+    ``library_ms`` is null; its plain version is autograd of the plain
+    version asked for that pass's outputs only (dK and dV, or dQ).  Each
+    input is 67 MB (float32), larger than the 50 MB L2.
+
+    Bounds, from this run's causal mask (S(S+1)/2 visible pairs per
+    head): each product (QKᵀ, PV, dO Vᵀ, dV, dK, dQ) is 2·hd flops a
+    visible pair; the forward does 2 of them (2·B·H·S²·hd), the dK/dV pass
+    4 (S, dP, dV, dK), the dQ pass 3 (S, dP, dQ); the backward as a whole
+    needs 5 (2.5 x the forward).  Rates: 67 TFLOP/s float32 (CUDA cores),
+    989 TFLOP/s bfloat16 (dense tensor cores), 3.35 TB/s."""
+    F = torch.nn.functional
+    B, H, S, hd = 4, 32, 2048, 64
+    BH, pairs = B * H, S * (S + 1) // 2
+    res = {}
+    for dname, peak in (("float32", F32_FLOPS), ("bfloat16", BF16_TC_FLOPS)):
+        dt = getattr(torch, dname)
+        el = torch.finfo(dt).bits // 8
+        g = torch.Generator(device="cuda")
+        g.manual_seed(5)
+        q, k, v, do = (torch.randn((B, H, S, hd), generator=g,
+                                   device="cuda").to(dt) for _ in range(4))
+        o, lse = fk.flash_fwd_cuda(q, k, v, causal=True)
+        _, _, delta = fk.flash_bwd_dkdv_cuda(q, k, v, o, lse, do, causal=True)
+        mat = BH * S * hd * el          # one (B, H, S, hd) tensor's bytes
+        row = BH * S * 4                # lse or delta
+        work = {                        # (flops, bytes) per entry point
+            "flash_fwd": (4 * BH * pairs * hd, 4 * mat + row),
+            "flash_bwd_dkdv": (8 * BH * pairs * hd, 7 * mat + 2 * row),
+            "flash_bwd_dq": (6 * BH * pairs * hd, 5 * mat + 2 * row),
+            "backward_total": (10 * BH * pairs * hd, 8 * mat + row),
+        }
+        kern = {
+            "flash_fwd": time_ms(torch, lambda: fk.flash_fwd_cuda(
+                q, k, v, causal=True), [()], reps=5, iters=3),
+            "flash_bwd_dkdv": time_ms(torch, lambda: fk.flash_bwd_dkdv_cuda(
+                q, k, v, o, lse, do, causal=True), [()], reps=5, iters=3),
+            "flash_bwd_dq": time_ms(torch, lambda: fk.flash_bwd_dq_cuda(
+                q, k, v, do, lse, delta, causal=True), [()], reps=5, iters=3),
+        }
+        kern["backward_total"] = kern["flash_bwd_dkdv"] + kern["flash_bwd_dq"]
+        qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fk.flash_attention_ref(*qkv, causal=True)
+
+        def plain_grads(wrt):
+            return time_ms(torch, lambda: torch.autograd.grad(
+                out, wrt, do, retain_graph=True), [()], reps=3, iters=2)
+
+        plain = {
+            "flash_fwd": time_ms(torch, lambda: fk.flash_attention_ref(
+                q, k, v, causal=True), [()], reps=3, iters=2),
+            "flash_bwd_dkdv": plain_grads(qkv[1:]),
+            "flash_bwd_dq": plain_grads(qkv[:1]),
+            "backward_total": plain_grads(qkv),
+        }
+        lib_out = F.scaled_dot_product_attention(*qkv, is_causal=True)
+        err = (lib_out.float() - out.float()).abs().max().item()
+        check(err <= 10 * FLASH_TOL[dname], f"sdpa {dname} disagrees with "
+              f"the plain version by {err:.3e}")
+        lib = {
+            "flash_fwd": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True), [()], reps=5, iters=3),
+            "flash_bwd_dkdv": None, "flash_bwd_dq": None,
+            "backward_total": time_ms(torch, lambda: torch.autograd.grad(
+                lib_out, qkv, do, retain_graph=True), [()], reps=5, iters=3),
+        }
+        del out, lib_out, qkv
+        for name, (flops, nbytes) in work.items():
+            t_ops = flops / peak * 1e3
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            res.setdefault(name, {})[dname] = {
+                "ms": kern[name], "plain_ms": plain[name],
+                "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "library_ms": lib[name], "flops": flops, "bytes": nbytes}
+            sdpa = "none" if lib[name] is None else f"{lib[name]:.4f} ms"
+            say("timing", f"{name} at B{B} H{H} S{S} hd{hd} causal {dname}: "
+                f"kernel {kern[name]:.4f} ms, bound "
+                f"{max(t_ops, t_bytes):.4f} ms ({flops} flops, {nbytes} "
+                f"bytes), plain {plain[name]:.4f} ms, sdpa {sdpa}")
+        del q, k, v, do, o, lse, delta
+        torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a "
@@ -682,6 +1137,7 @@ def main() -> int:
 
     # 2. build: one nvcc per kernel source, all started together
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import moe as mk
     from repro_torch.kernels import paged_attention as pk
 
@@ -695,11 +1151,16 @@ def main() -> int:
                 say("build", f"{kernel}: {line.strip()}")
     counters = {"paged_decode": pk.paged_decode_cuda,
                 "moe_dispatch": mk.moe_dispatch_cuda,
-                "moe_combine": mk.moe_combine_cuda}
+                "moe_combine": mk.moe_combine_cuda,
+                "flash_fwd": fk.flash_fwd_cuda,
+                "flash_bwd_dkdv": fk.flash_bwd_dkdv_cuda,
+                "flash_bwd_dq": fk.flash_bwd_dq_cuda}
 
     # 3. kernels against their plain versions
     worst = phase_kernels(torch, pk)
     moe_worst = phase_moe_kernels(torch, mk)
+    moe_bwd = phase_moe_backward(torch, mk)
+    flash_worst = phase_flash_kernels(torch, fk)
 
     # 4.-5. llama3.2-1b, then its state is freed before olmoe's 27.7 GB
     llama_launches, state = phase_serve(torch, counters)
@@ -713,17 +1174,31 @@ def main() -> int:
     del state
     torch.cuda.empty_cache()
 
-    # 7. timing
+    # 7.-9. training: the main path of this slice, the teacher checks and
+    # a profiled step
+    train_launches, _, _ = phase_train(torch, counters)
+    torch.cuda.empty_cache()
+    teacher = phase_teacher(torch, counters)
+    phase_train_profile(torch)
+    torch.cuda.empty_cache()
+
+    # 10. timing
     timing = phase_timing(torch, pk)
     moe_timing = phase_moe_timing(torch, mk)
+    flash_timing = phase_flash_timing(torch, fk)
 
-    by_path = {k: {"llama3.2-1b": llama_launches[k],
-                   "olmoe-1b-7b": moe_launches[k]} for k in counters}
+    paths = (("llama3.2-1b serve", llama_launches),
+             ("olmoe-1b-7b serve", moe_launches),
+             ("llama3.2-1b train", train_launches),
+             ("olmoe-1b-7b 2-layer train check",
+              teacher["olmoe-1b-7b"]["launches"]))
+    by_path = {k: {p: n[k] for p, n in paths if n.get(k)} for k in counters}
     kernels = [{
         "name": "paged_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
         "replaces": "src/repro/kernels/paged_attention.py:277",
-        "launches": sum(by_path["paged_decode"].values()),
+        "launches": llama_launches["paged_decode"]
+        + moe_launches["paged_decode"],
         "launches_by_path": by_path["paged_decode"],
         "max_abs_err": worst["float32"],
         "max_abs_err_bf16": worst["bfloat16"], **timing,
@@ -740,10 +1215,32 @@ def main() -> int:
             "launches_by_path": by_path[kname],
             "max_abs_err": moe_worst[kname]["float32"],
             "max_abs_err_bf16": moe_worst[kname]["bfloat16"],
+            "max_abs_err_backward": moe_bwd,
             **{k: t["decode"][k] for k in TIMED},
             "shape": "olmoe-1b-7b decode, G4 S1 E64 K8 C8 D2048",
             "prefill": {k: t["prefill"][k] for k in TIMED},
         })
+    for kname in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
+        t = flash_timing[kname]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:85",
+            "launches": train_launches[kname],
+            "launches_by_path": by_path[kname],
+            "max_abs_err": flash_worst[kname]["float32"],
+            "max_abs_err_bf16": flash_worst[kname]["bfloat16"],
+            **{k: t["float32"][k] for k in TIMED},
+            "shape": "llama3.2-1b training microbatch, B4 H32 S2048 hd64, "
+                     "causal, float32",
+            "bfloat16": {k: t["bfloat16"][k] for k in TIMED},
+        })
+        if kname != "flash_fwd":
+            total = flash_timing["backward_total"]
+            kernels[-1]["backward_total"] = {
+                "parts": ["flash_bwd_dkdv", "flash_bwd_dq"],
+                **{k: total["float32"][k] for k in TIMED},
+                "bfloat16": {k: total["bfloat16"][k] for k in TIMED}}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

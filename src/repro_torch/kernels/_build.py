@@ -96,15 +96,14 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def refuse_autograd(name: str, *tensors) -> None:
-    """Raise when a kernel wrapper is called where autograd would record
-    it: the kernels have no backward yet, and an output without a
-    ``grad_fn`` would be a silently wrong gradient.  The plain versions
-    stay differentiable through ordinary autograd."""
+def refuse_autograd(name: str, *tensors, reason: str) -> None:
+    """Raise when a kernel's launcher is called where autograd would
+    record it: the launch leaves an output without a ``grad_fn``, which
+    would be a silently wrong gradient.  ``reason`` says where the
+    gradient comes from instead.  The plain versions stay differentiable
+    through ordinary autograd."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in tensors if t.is_floating_point()):
         raise RuntimeError(
-            f"{name} has no backward pass yet (the kernels' autograd "
-            "Functions come with the training slice, ROADMAP.md queue 1 "
-            "item 8); call it under torch.no_grad() or use the plain "
-            "version for gradients")
+            f"{name} does not record a gradient: {reason}; call it under "
+            "torch.no_grad() or use the plain version for gradients")

@@ -15,9 +15,14 @@ D-wide row movement has two implementations each:
 * :func:`moe_dispatch_cuda` / :func:`moe_combine_cuda` — the hand-written
   Hopper kernels of ``csrc/moe.cu``, CUDA tensors only.
 
-No backward yet: the wrappers raise under autograd (the
-``autograd.Function`` pair, dispatchᵀ = combine, comes with the training
-slice); the plain versions are differentiable as they stand.
+Gradients through the kernels come from the autograd Functions
+:class:`MoeDispatch` and :class:`MoeCombine`, as the reference's
+``custom_vjp`` defines them: dispatch is linear in x and its transpose is
+combine, and combine's transpose (for the slab) is dispatch, so each
+backward launches the *other* kernel; combine's gate gradient is a
+gather-dot in PyTorch, as the reference leaves it to XLA.  The raw
+launchers refuse autograd; the plain versions are differentiable as they
+stand.
 """
 
 from __future__ import annotations
@@ -70,6 +75,15 @@ def slot_weights(slot_nk, wtok):
     safe = slot_nk.clamp_min(0).reshape(G, -1).long()
     w = torch.gather(wtok, 1, safe).reshape(slot_nk.shape)
     return torch.where(slot_nk >= 0, w, 0.0).to(wtok.dtype)
+
+
+def dispatch_slots(eid, pos, wtok, *, num_experts: int, capacity: int,
+                   top_k: int):
+    """(slot_src, slot_w) of the (G, S·K) routing, as dispatch takes
+    them: pairs with weight 0 claim no slot."""
+    slot_nk = slot_maps(eid, pos, wtok != 0, num_experts=num_experts,
+                        capacity=capacity)
+    return slot_sources(slot_nk, top_k=top_k), slot_weights(slot_nk, wtok)
 
 
 # --------------------------------------------------------------------------
@@ -133,7 +147,11 @@ def _check_tensors(name: str, data, ints, floats, *,
         raise ValueError(f"{name} takes CUDA tensors only")
     if len({t.device for t in tensors}) != 1:
         raise ValueError(f"{name}: tensors on different devices")
-    _build.refuse_autograd(name, *tensors)
+    _build.refuse_autograd(
+        name, *tensors,
+        reason="its gradient comes from MoeDispatch / MoeCombine "
+               "(kernels.ops.moe_dispatch / moe_combine), which launch the "
+               "other kernel as the backward")
     if data.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"{name}: data dtype {data.dtype} is not float32 "
                          "or bfloat16")
@@ -161,8 +179,9 @@ def moe_dispatch_cuda(x, slot_src, slot_w):
     ``slot_src`` int32; ``slot_w`` is taken in float32, as the TPU
     kernel takes it), with the product formed in float32 and cast once.
     CUDA tensors only; raises on anything the kernel does not take, when
-    the launch is refused, and under autograd.
-    ``moe_dispatch_cuda.launches`` counts the launches."""
+    the launch is refused, and under autograd (:class:`MoeDispatch` is the
+    differentiable form).  ``moe_dispatch_cuda.launches`` counts the
+    launches."""
     slot_w = slot_w.to(torch.float32)
     _check_tensors("moe_dispatch_cuda", x, (slot_src,), (slot_w,))
     if x.dim() != 3 or slot_src.dim() != 3 or slot_w.shape != slot_src.shape:
@@ -197,9 +216,10 @@ def moe_combine_cuda(buf, eid, pos, w):
     ``eid``/``pos`` int32; ``w`` is taken in float32, as the TPU kernel
     takes it), summing over k in order into a float32 accumulator and
     casting once.  ``buf`` may be a strided view (the expert product's
-    permuted output) as long as its D axis is contiguous.  CUDA tensors only; raises on anything the kernel does
-    not take, when the launch is refused, and under autograd.
-    ``moe_combine_cuda.launches`` counts the launches."""
+    permuted output) as long as its D axis is contiguous.  CUDA tensors
+    only; raises on anything the kernel does not take, when the launch is
+    refused, and under autograd (:class:`MoeCombine` is the differentiable
+    form).  ``moe_combine_cuda.launches`` counts the launches."""
     w = w.to(torch.float32)
     _check_tensors("moe_combine_cuda", buf, (eid, pos), (w,),
                    strided_data=True)
@@ -227,3 +247,76 @@ def moe_combine_cuda(buf, eid, pos, w):
 
 
 moe_combine_cuda.launches = 0
+
+
+# --------------------------------------------------------------------------
+# autograd through the kernels (reference: moe.py custom_vjp pair)
+# --------------------------------------------------------------------------
+
+
+class MoeDispatch(torch.autograd.Function):
+    """Dispatch (G,S,D) → (G,E,C,D) through the dispatch kernel, with the
+    combine kernel as its backward: ``dx[s] = Σ_k wtok[s,k]·dbuf[eid, pos]``
+    over the kept pairs (dropped pairs' ``pos`` is clamped to slot 0;
+    their weight is 0).  ``wtok`` (the keep mask in the model) is a
+    constant of the routing: its gradient is zero."""
+
+    @staticmethod
+    def forward(ctx, x, eid, pos, wtok, num_experts, capacity, top_k):
+        src, sw = dispatch_slots(eid, pos, wtok, num_experts=num_experts,
+                                 capacity=capacity, top_k=top_k)
+        ctx.save_for_backward(eid, pos, wtok)
+        ctx.x_shape = x.shape
+        return moe_dispatch_cuda(x.contiguous(), src, sw)
+
+    @staticmethod
+    def backward(ctx, dbuf):
+        eid, pos, wtok = ctx.saved_tensors
+        G, S, _ = ctx.x_shape
+        K = eid.shape[1] // S
+        dx = None
+        if ctx.needs_input_grad[0]:
+            safe_pos = torch.where(wtok != 0, pos, 0).to(torch.int32)
+            if dbuf.stride(-1) != 1:        # the kernel reads rows whole
+                dbuf = dbuf.contiguous()
+            dx = moe_combine_cuda(dbuf,
+                                  eid.reshape(G, S, K).contiguous(),
+                                  safe_pos.reshape(G, S, K).contiguous(),
+                                  wtok.reshape(G, S, K).contiguous())
+        dw = torch.zeros_like(wtok) if ctx.needs_input_grad[3] else None
+        return dx, None, None, dw, None, None, None
+
+
+class MoeCombine(torch.autograd.Function):
+    """Combine (G,E,C,D) → (G,S,D) through the combine kernel.  Backward:
+    the slab's gradient is the dispatch kernel applied to dy with the kept
+    pairs' weights (``dbuf[e,c] = w[s,k]·dy[s]`` for the slot's owner), and
+    ``dw[s,k] = ⟨dy[s], buf[eid,pos]⟩`` over the kept pairs, a gather-dot
+    in PyTorch (the reference computes it in XLA, outside its kernels)."""
+
+    @staticmethod
+    def forward(ctx, buf, eid, pos, w):
+        ctx.save_for_backward(buf, eid, pos, w)
+        return moe_combine_cuda(buf, eid, pos, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        buf, eid, pos, w = ctx.saved_tensors
+        G, E, C, _ = buf.shape
+        _, S, K = eid.shape
+        keep = w != 0
+        dy = dy.contiguous()
+        dbuf = dw = None
+        if ctx.needs_input_grad[0]:
+            wtok = torch.where(keep, w, 0.0).reshape(G, S * K)
+            src, sw = dispatch_slots(eid.reshape(G, S * K),
+                                     pos.reshape(G, S * K), wtok,
+                                     num_experts=E, capacity=C, top_k=K)
+            dbuf = moe_dispatch_cuda(dy, src, sw).to(buf.dtype)
+        if ctx.needs_input_grad[3]:
+            rows = torch.arange(G, device=buf.device)[:, None, None]
+            picked = buf[rows, eid.long().clamp(0, E - 1),
+                         pos.long().clamp(0, C - 1)]           # (G, S, K, D)
+            dw = torch.einsum("gskd,gsd->gsk", picked.float(), dy.float())
+            dw = torch.where(keep, dw, 0.0).to(w.dtype)
+        return dbuf, None, None, dw

@@ -9,8 +9,37 @@ nothing falls back.
 
 from __future__ import annotations
 
+from repro_torch.kernels import flash_attention as flash_k
 from repro_torch.kernels import moe as moe_k
 from repro_torch.kernels import paged_attention as paged_k
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: int | None = None,
+                    softcap: float | None = None, impl: str = "auto"):
+    """Blockwise attention, q/k/v (B, H, S, hd) with KV heads expanded →
+    (B, H, Sq, hd); differentiable on every path.
+
+    ``auto``: the CUDA kernels (forward and backward,
+    :class:`flash_k.FlashAttention`) for CUDA tensors, the plain
+    :func:`flash_k.flash_attention_ref` for CPU tensors; ``ref`` forces
+    the plain version on any device; ``cuda`` forces the kernels and
+    raises for CPU tensors.  Unlike the reference's Pallas kernel, which
+    needs Sq and Sk padded up to its 128-row blocks (and so refuses a
+    non-causal Sk off the block multiple), the CUDA kernels take any
+    lengths: rows and keys past the last full tile do not exist for
+    them."""
+    if impl not in ("auto", "ref", "cuda"):
+        raise ValueError(f"unknown flash-attention impl {impl!r}: expected "
+                         "auto/ref/cuda")
+    if impl == "ref" or (impl == "auto" and not q.is_cuda):
+        return flash_k.flash_attention_ref(q, k, v, causal=causal,
+                                           window=window, softcap=softcap)
+    if not q.is_cuda:
+        raise ValueError(f"impl='cuda' needs CUDA tensors; q lies on "
+                         f"{q.device}")
+    return flash_k.flash_attention_cuda(q, k, v, causal=causal,
+                                        window=window, softcap=softcap)
 
 
 def paged_attention_decode(q, k_pages, v_pages, page_table, q_pos, *,
@@ -65,21 +94,25 @@ def moe_dispatch(x, eid, pos, wtok, *, num_experts: int, capacity: int,
     eid/pos: ``(G, S·K)`` int32 routing; wtok: ``(G, S·K)`` per-(token,k)
     weight (the keep mask in the model; pairs with weight 0 claim no
     slot).  ``auto``: the CUDA kernel (:func:`moe_k.moe_dispatch_cuda`)
-    for CUDA tensors, the slot gather (:func:`moe_k.dispatch_slot`) for
-    CPU tensors; ``slot`` forces the plain version, ``cuda`` the kernel."""
+    for CUDA tensors — through :class:`moe_k.MoeDispatch`, whose backward
+    is the combine kernel — and the slot gather
+    (:func:`moe_k.dispatch_slot`) for CPU tensors; ``slot`` forces the
+    plain version, ``cuda`` the kernel.  Differentiable on every path."""
     impl = _moe_impl(impl, x)
-    slot_nk = moe_k.slot_maps(eid, pos, wtok != 0, num_experts=num_experts,
-                              capacity=capacity)
-    slot_src = moe_k.slot_sources(slot_nk, top_k=top_k)
-    slot_w = moe_k.slot_weights(slot_nk, wtok)
     if impl == "cuda":
-        return moe_k.moe_dispatch_cuda(x.contiguous(), slot_src, slot_w)
+        return moe_k.MoeDispatch.apply(x, eid, pos, wtok, num_experts,
+                                       capacity, top_k)
+    slot_src, slot_w = moe_k.dispatch_slots(
+        eid, pos, wtok, num_experts=num_experts, capacity=capacity,
+        top_k=top_k)
     return moe_k.dispatch_slot(x, slot_src, slot_w)
 
 
 def moe_combine(buf, eid, pos, w, *, impl: str = "auto"):
     """Gate-weighted combine (G,E,C,D) → (G,S,D); eid/pos/w: (G, S, K).
-    Same ``impl`` choices as :func:`moe_dispatch`."""
+    Same ``impl`` choices as :func:`moe_dispatch`; the kernel path goes
+    through :class:`moe_k.MoeCombine`, whose backward is the dispatch
+    kernel plus the gate gradient's gather-dot."""
     if _moe_impl(impl, buf) == "cuda":
-        return moe_k.moe_combine_cuda(buf, eid, pos, w)
+        return moe_k.MoeCombine.apply(buf, eid, pos, w)
     return moe_k.combine_slot(buf, eid, pos, w)

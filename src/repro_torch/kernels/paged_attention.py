@@ -265,7 +265,10 @@ def paged_decode_cuda(q, k_pages, v_pages, page_table, q_pos, *,
     tensors = (q, k_pages, v_pages, page_table, q_pos)
     if not all(t.is_cuda for t in tensors):
         raise ValueError("paged_decode_cuda takes CUDA tensors only")
-    _build.refuse_autograd("paged_decode_cuda", *tensors)
+    _build.refuse_autograd(
+        "paged_decode_cuda", *tensors,
+        reason="paged decode serves decode steps and has no backward "
+               "kernel (the reference has none either)")
     if len({t.device for t in tensors}) != 1:
         raise ValueError("paged_decode_cuda: tensors on different devices")
     if q.dtype not in _KERNEL_DTYPES:

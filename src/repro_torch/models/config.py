@@ -58,6 +58,12 @@ class ArchConfig:
     #: kernels for CUDA tensors, the slot gathers for CPU tensors; "slot"
     #: / "cuda" force a path; "ref" pins the scatter/gather oracle
     moe_impl: str = "auto"
+    #: full-sequence attention path (training, prefill;
+    #: kernels/ops.py flash_attention): "auto" → the CUDA flash kernels for
+    #: CUDA tensors, the plain version for CPU tensors; "ref" / "cuda"
+    #: force a path.  The port's own field: the reference's attention
+    #: has no kernel to choose.
+    attn_impl: str = "auto"
     #: decode KV-cache layout: "dense" = per-sequence ring buffers (the
     #: oracle); "paged" = shared page pool + per-sequence page tables
     #: (kernels/paged_attention.py) — within the paged path the kernel

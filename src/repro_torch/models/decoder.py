@@ -9,6 +9,9 @@ leaves are stacked on a leading ``repeats`` axis — with weights
 
 Entry points:
   * :func:`init_model`  — parameter tree from a seeded ``torch.Generator``
+  * :func:`forward`     — full-sequence logits (+ MoE aux loss)
+  * :func:`loss_fn`     — token cross-entropy (+ MoE aux loss), the
+    training objective
   * :func:`init_cache`  — decode cache (paged page pool or dense rings)
   * :func:`prefill`     — one forward that fills the cache
   * :func:`decode_step` — one-token step against the cache
@@ -26,6 +29,7 @@ import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import paged_attention as paged_k
@@ -33,15 +37,8 @@ from repro_torch.models.config import ArchConfig, LayerSpec
 from repro_torch.nn import attention as attn_mod
 from repro_torch.nn import moe as moe_mod
 from repro_torch.nn.attention import AttnSpec
-from repro_torch.nn.base import layernorm, rmsnorm, softcap
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    return fn(tree)
+from repro_torch.nn.base import layernorm, masked_nll, rmsnorm, softcap
+from repro_torch.tree import tree_map as _tree_map
 
 
 def _check_supported(cfg: ArchConfig) -> None:
@@ -62,7 +59,7 @@ def _attn_spec(cfg: ArchConfig, spec: LayerSpec, *, causal=True) -> AttnSpec:
         causal=causal, window=spec.window, logit_softcap=spec.logit_softcap,
         rope=spec.rope and cfg.pos_embed == "rope",
         rope_theta=cfg.rope_theta, rope_fraction=spec.rope_fraction,
-        qk_norm=spec.qk_norm,
+        qk_norm=spec.qk_norm, impl=cfg.attn_impl,
     )
 
 
@@ -222,14 +219,22 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
 # --------------------------------------------------------------------------
 
 
-def _ffn_block(cfg, spec: LayerSpec, p, x):
+def _ffn_block(cfg, spec: LayerSpec, p, x, *, with_aux: bool = False):
     """norm2 → dense or MoE FFN → (post-norm) → residual.  The MoE routes
     each sequence as one group (prefill: S tokens; decode: 1) through
-    ``cfg.moe_impl``; its aux loss is a training term, not computed here."""
+    ``cfg.moe_impl``.  Returns ``(x, aux)``: ``aux`` is the MoE's
+    load-balance loss when ``with_aux`` (training) and the FFN is an MoE,
+    else ``None`` — serving never computes it."""
     if spec.ffn == "none":
-        return x
+        return x, None
     h = _norm(cfg, p["norm2"], x)
-    if spec.ffn == "moe":
+    aux = None
+    if spec.ffn == "moe" and with_aux:
+        y, terms = moe_mod.moe_ffn(p["ffn"], h, top_k=cfg.moe_top_k,
+                                   capacity_factor=cfg.moe_capacity_factor,
+                                   impl=cfg.moe_impl)
+        aux = terms["aux_loss"]
+    elif spec.ffn == "moe":
         y = moe_mod.moe_forward(p["ffn"], h, top_k=cfg.moe_top_k,
                                 capacity_factor=cfg.moe_capacity_factor,
                                 impl=cfg.moe_impl)
@@ -237,7 +242,7 @@ def _ffn_block(cfg, spec: LayerSpec, p, x):
         y = moe_mod.dense_ffn(p["ffn"], h)
     if spec.post_norm:
         y = _norm(cfg, p["norm_post2"], y)
-    return x + y
+    return x + y, aux
 
 
 def _decode_layer(cfg, spec: LayerSpec, p, x, cache, index, *, paged=None,
@@ -259,7 +264,7 @@ def _decode_layer(cfg, spec: LayerSpec, p, x, cache, index, *, paged=None,
                                              aspec)
     if spec.post_norm:
         y = _norm(cfg, p["norm_post1"], y)
-    return _ffn_block(cfg, spec, p, x + y), cache
+    return _ffn_block(cfg, spec, p, x + y)[0], cache
 
 
 def _embed(params, cfg: ArchConfig, tokens, compute_dtype):
@@ -269,17 +274,135 @@ def _embed(params, cfg: ArchConfig, tokens, compute_dtype):
     return x
 
 
-def _head(params, cfg: ArchConfig, x, compute_dtype):
-    x = _norm(cfg, params["final_norm"], x)
+def _head_weight(params, cfg: ArchConfig, compute_dtype):
+    """(D, padded_vocab): the tied embedding's transpose or ``lm_head``."""
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = x @ head.to(compute_dtype)
+    return head.to(compute_dtype)
+
+
+def _logits(params, cfg: ArchConfig, x, compute_dtype):
+    """Head and final soft-cap of normed hidden states."""
+    logits = x @ _head_weight(params, cfg, compute_dtype)
     if cfg.final_softcap:
         logits = softcap(logits.float(), cfg.final_softcap)
     return logits
 
 
+def _head(params, cfg: ArchConfig, x, compute_dtype):
+    """Final norm, head and final soft-cap."""
+    return _logits(params, cfg, _norm(cfg, params["final_norm"], x),
+                   compute_dtype)
+
+
 def _layer_views(tree, r: int):
     return _tree_map(lambda a: a[r], tree)
+
+
+# --------------------------------------------------------------------------
+# forward (training)
+# --------------------------------------------------------------------------
+
+
+def _apply_layer(cfg, spec: LayerSpec, p, x, *, positions):
+    """One training layer: attention (flash, ``cfg.attn_impl``) then the FFN.
+    Returns (x, moe_aux) with moe_aux a float32 scalar tensor."""
+    p = _cast(p, x.dtype)
+    h = _norm(cfg, p["norm1"], x)
+    y = attn_mod.attention(p["mixer"], h, _attn_spec(cfg, spec),
+                           positions=positions)
+    if spec.post_norm:
+        y = _norm(cfg, p["norm_post1"], y)
+    x, aux = _ffn_block(cfg, spec, p, x + y, with_aux=True)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
+
+
+def _run_blocks(params, cfg: ArchConfig, x, *, positions, remat=True):
+    """Every layer in order (a Python loop where the reference scans the
+    stacked blocks).  With ``remat`` each layer is checkpointed
+    (``torch.utils.checkpoint``, non-reentrant): its activations are
+    recomputed, one layer at a time, in the backward pass, so the forward
+    kernels of a layer run twice per training step.  Returns
+    (x, summed moe_aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for r in range(cfg.repeats):
+        p_r = _layer_views(params["blocks"], r)
+        for j, spec in enumerate(cfg.pattern):
+            def layer(x, _p=p_r[j], _spec=spec):
+                return _apply_layer(cfg, _spec, _p, x, positions=positions)
+
+            if remat:
+                x, a = checkpoint(layer, x, use_reentrant=False)
+            else:
+                x, a = layer(x)
+            aux = aux + a
+    return x, aux
+
+
+def _hidden(params, cfg: ArchConfig, tokens, *, compute_dtype=torch.bfloat16,
+            remat=True):
+    """Backbone up to the final norm.  tokens: (B, S) integer; positions
+    are ``arange(S)`` per row, which the flash kernel's index masking
+    relies on.  Returns (x (B, S, D), moe_aux)."""
+    _check_supported(cfg)
+    B, S = tokens.shape
+    x = _embed(params, cfg, tokens, compute_dtype)
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=tokens.device).expand(B, S)
+    x, aux = _run_blocks(params, cfg, x, positions=positions, remat=remat)
+    return _norm(cfg, params["final_norm"], x), aux
+
+
+def forward(params, cfg: ArchConfig, tokens, *, compute_dtype=torch.bfloat16,
+            remat=True):
+    """tokens: (B, S) → (logits (B, S, padded_vocab), moe_aux).  The
+    attention follows ``cfg.attn_impl``, the MoE ``cfg.moe_impl``."""
+    x, aux = _hidden(params, cfg, tokens, compute_dtype=compute_dtype,
+                     remat=remat)
+    return _logits(params, cfg, x, compute_dtype), aux
+
+
+#: sequence-chunk length for the loss head: logits materialize one
+#: (B, LOSS_CHUNK, vocab) tile at a time (the reference's value)
+LOSS_CHUNK = 512
+MOE_AUX_COEF = 0.01
+
+
+def _chunk_nll(x_c, y_c, head, final_softcap):
+    """Summed token NLL and token count of one sequence chunk."""
+    logits = x_c @ head
+    if final_softcap:
+        logits = softcap(logits.float(), final_softcap)
+    return masked_nll(logits, y_c)
+
+
+def loss_fn(params, cfg: ArchConfig, batch, *, compute_dtype=torch.bfloat16,
+            remat=True):
+    """Mean token cross-entropy of ``batch`` ({"tokens", "labels"}, (B, S)
+    integer tensors; labels < 0 are ignored), plus
+    ``MOE_AUX_COEF · aux / num_layers`` for MoE archs.  The head runs over
+    chunks of ``LOSS_CHUNK`` positions (when S is a multiple above it),
+    each checkpointed so its (B, chunk, vocab) logits are recomputed in
+    the backward pass instead of kept.  The attention follows
+    ``cfg.attn_impl``, the MoE ``cfg.moe_impl``."""
+    x, aux = _hidden(params, cfg, batch["tokens"], compute_dtype=compute_dtype,
+                     remat=remat)
+    head = _head_weight(params, cfg, compute_dtype)
+    labels = batch["labels"]
+    S = x.shape[1]
+    C = LOSS_CHUNK if (S % LOSS_CHUNK == 0 and S > LOSS_CHUNK) else S
+    nll = torch.zeros((), dtype=torch.float32, device=x.device)
+    n = torch.zeros((), dtype=torch.int64, device=x.device)
+    for c in range(S // C):
+        sl = slice(c * C, (c + 1) * C)
+        nll_c, n_c = checkpoint(_chunk_nll, x[:, sl], labels[:, sl], head,
+                                cfg.final_softcap, use_reentrant=False)
+        nll, n = nll + nll_c, n + n_c
+    loss = nll / n.clamp_min(1)
+    if cfg.has_moe:
+        loss = loss + MOE_AUX_COEF * aux / cfg.num_layers
+    return loss
 
 
 def decode_step(params, cfg: ArchConfig, token, cache, index=0, *,
@@ -345,7 +468,7 @@ def _prefill_layer(cfg, spec: LayerSpec, p, x, cache, positions, lengths,
         _dense_prefill_write(cache, k, v, positions, lengths)
     if spec.post_norm:
         y = _norm(cfg, p["norm_post1"], y)
-    return _ffn_block(cfg, spec, p, x + y)
+    return _ffn_block(cfg, spec, p, x + y)[0]
 
 
 def prefill(params, cfg: ArchConfig, tokens, cache, *, lengths=None,
@@ -354,6 +477,7 @@ def prefill(params, cfg: ArchConfig, tokens, cache, *, lengths=None,
 
     tokens: (B, S) int32, right-padded when ``lengths (B,)`` is given —
     sample the first generated token from ``logits[b, lengths[b]-1]``.
+    The causal attention follows ``cfg.attn_impl``.
     Returns (logits (B, S, padded_vocab), cache)."""
     paged = isinstance(cache, dict)
     B, S = tokens.shape

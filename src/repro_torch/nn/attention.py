@@ -1,12 +1,15 @@
-"""GQA attention with RoPE, sliding window and logit soft-capping: prefill,
-the dense ring-buffer decode (the oracle) and paged decode (port of
-``repro.nn.attention``).
+"""GQA attention with RoPE, sliding window and logit soft-capping:
+full-sequence attention (training), prefill, the dense ring-buffer decode
+(the oracle) and paged decode (port of ``repro.nn.attention``).
 
-Prefill attention is plain einsum/softmax, as the reference has it in
-jnp; paged decode goes through ``kernels.ops.paged_attention_decode``,
-which launches the Hopper kernel for CUDA tensors.  Cache updates are in
-place: the caller owns the cache tensors and the functions write the new
-token's k/v into them (the reference returns fresh arrays instead).
+Full-sequence and causal prefill attention go through
+``kernels.ops.flash_attention`` (the Hopper flash kernels, forward and
+backward, for CUDA tensors), where the reference runs jnp
+``_sdpa_direct`` / ``_sdpa_blockwise``; those two stay here as the
+oracles.  Paged decode goes through ``kernels.ops.paged_attention_decode``.
+Cache updates are in place: the caller owns the cache tensors and the
+functions write the new token's k/v into them (the reference returns
+fresh arrays instead).
 """
 
 from __future__ import annotations
@@ -39,6 +42,9 @@ class AttnSpec:
     rope_theta: float = 10000.0
     rope_fraction: float = 1.0
     qk_norm: bool = False              # Qwen3-style per-head RMS on q/k
+    #: the port's own: kernels.ops.flash_attention's impl for the
+    #: full-sequence paths (ArchConfig.attn_impl)
+    impl: str = "auto"
 
 
 def init_attention(gen: torch.Generator, d_model: int, spec: AttnSpec, *,
@@ -136,6 +142,52 @@ def _sdpa_blockwise(q, k, v, q_pos, k_pos, spec: AttnSpec):
 
 
 # --------------------------------------------------------------------------
+# full-sequence attention (training)
+# --------------------------------------------------------------------------
+
+
+def _project_qkv(p, x, kv_x, spec: AttnSpec, q_pos, k_pos):
+    """q (B, Sq, H, hd) and k, v (B, Sk, H, hd) — normed, roped, KV heads
+    expanded to H."""
+    B, Sq, _ = x.shape
+    H, KV, hd = spec.n_heads, spec.n_kv_heads, spec.head_dim
+    q = (x @ p["wq"]).reshape(B, Sq, H, hd)
+    k = (kv_x @ p["wk"]).reshape(B, kv_x.shape[1], KV, hd)
+    v = (kv_x @ p["wv"]).reshape(B, kv_x.shape[1], KV, hd)
+    if spec.qk_norm:
+        q = rmsnorm(q, p["q_norm"])
+        k = rmsnorm(k, p["k_norm"])
+    if spec.rope:
+        q = apply_rope(q, q_pos, theta=spec.rope_theta,
+                       fraction=spec.rope_fraction)
+        k = apply_rope(k, k_pos, theta=spec.rope_theta,
+                       fraction=spec.rope_fraction)
+    return q, _expand_kv(k, H), _expand_kv(v, H)
+
+
+def attention(p, x, spec: AttnSpec, *, positions):
+    """Full-sequence self-attention (training / forward).  x: (B, S, D);
+    positions: (B, S) int32.  Returns (B, S, D).
+
+    The attention runs in :func:`kernels.ops.flash_attention` on
+    (B, H, S, hd) views (``spec.impl``: ``auto`` = the CUDA kernels for
+    CUDA tensors and the plain version for CPU tensors, ``ref``, ``cuda``).
+    The kernel masks by *index* where the reference masks by
+    ``positions``; the two agree because every caller passes
+    ``positions = arange(S)`` (``models.decoder._hidden`` builds them so,
+    as the reference's does).  Nothing checks it here: a check would sync
+    the host every layer.  Cross-attention waits for the encoder archs
+    (ROADMAP.md queue 1 item 10)."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(p, x, x, spec, positions, positions)
+    o = kernel_ops.flash_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=spec.causal, window=spec.window,
+        softcap=spec.logit_softcap, impl=spec.impl).transpose(1, 2)
+    return o.reshape(B, S, spec.n_heads * spec.head_dim) @ p["wo"]
+
+
+# --------------------------------------------------------------------------
 # prefill (one forward that also yields the cacheable k/v)
 # --------------------------------------------------------------------------
 
@@ -155,9 +207,14 @@ def prefill_attention(p, x, spec: AttnSpec, *, positions, lengths=None):
     """Full-sequence self-attention that ALSO returns the (unexpanded,
     post-rope) k/v so the caller can fill a decode cache in one shot.
 
-    x: (B, S, D); positions: (B, S); ``lengths (B,)`` masks right-padded
-    prompts — padded keys are never attended (padded *queries* produce
-    garbage rows the caller discards).  Returns
+    x: (B, S, D); positions: (B, S) = arange(S) per row (as
+    ``models.decoder.prefill`` builds them); ``lengths (B,)`` masks
+    right-padded prompts — padded keys are never attended by a real query
+    (padded *queries* produce garbage rows the caller discards).  A
+    causal spec runs :func:`kernels.ops.flash_attention` (``spec.impl`` as
+    in :func:`attention`): right-padded keys lie after every real query, so
+    the causal mask by index hides them.  A non-causal spec keeps the
+    position-masked ``_sdpa`` paths.  Returns
     (out (B, S, D), k (B, S, KV, hd), v (B, S, KV, hd)).
     """
     B, S, _ = x.shape
@@ -170,10 +227,16 @@ def prefill_attention(p, x, spec: AttnSpec, *, positions, lengths=None):
     if spec.rope:
         k = apply_rope(k, positions, theta=spec.rope_theta,
                        fraction=spec.rope_fraction)
+    ke, ve = _expand_kv(k, H), _expand_kv(v, H)
+    if spec.causal:
+        o = kernel_ops.flash_attention(
+            q.transpose(1, 2), ke.transpose(1, 2), ve.transpose(1, 2),
+            causal=True, window=spec.window, softcap=spec.logit_softcap,
+            impl=spec.impl).transpose(1, 2)
+        return o.reshape(B, S, H * hd) @ p["wo"], k, v
     k_pos = positions
     if lengths is not None:
         k_pos = torch.where(positions < lengths[:, None], positions, -1)
-    ke, ve = _expand_kv(k, H), _expand_kv(v, H)
     if S <= BLOCKWISE_THRESHOLD:
         o = _sdpa_direct(q, ke, ve, positions, k_pos, spec)
     else:

@@ -64,3 +64,22 @@ def apply_rope(x, positions, *, theta: float = 10000.0, fraction: float = 1.0):
 def swiglu(x, w1, w3, w2):
     """SwiGLU FFN: (silu(x·w1) ⊙ x·w3)·w2."""
     return (F.silu(x @ w1) * (x @ w3)) @ w2
+
+
+def masked_nll(logits, labels):
+    """Summed token cross-entropy in float32 and the number of tokens it
+    sums; labels < 0 are ignored."""
+    logits = logits.float()
+    mask = labels >= 0
+    safe = labels.clamp_min(0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    return ((logz - gold) * mask).sum(), mask.sum()
+
+
+def cross_entropy_loss(logits, labels, *, vocab: int):
+    """Mean token cross-entropy in float32; labels < 0 are ignored.  The
+    log-partition runs over every logit given, as the reference's does
+    (``vocab`` is accepted for its signature and not read)."""
+    nll, n = masked_nll(logits, labels)
+    return nll / n.clamp_min(1)

@@ -16,7 +16,10 @@ PORT = ROOT / "src" / "repro_torch"
 
 MODULES = ["repro_torch", "repro_torch.launch.serve",
            "repro_torch.kernels.ops", "repro_torch.nn.moe",
-           "repro_torch.kernels.moe"]
+           "repro_torch.kernels.moe", "repro_torch.kernels.flash_attention",
+           "repro_torch.launch.train", "repro_torch.launch.steps",
+           "repro_torch.optim", "repro_torch.data",
+           "repro_torch.checkpoint", "repro_torch.tree"]
 
 
 @pytest.fixture(scope="module")

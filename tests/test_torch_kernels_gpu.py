@@ -10,13 +10,19 @@ summed in another order), bfloat16 atol 2e-2 (bf16 rounding of the
 gather's einsums and of the output); MoE dispatch/combine float32 atol
 1e-5, bfloat16 atol 5e-2 (the reference's kernel-test tolerances: the
 kernels form products in f32 and cast once, the slot versions multiply
-in bf16).
+in bf16); flash attention forward float32 atol 2e-5 and bfloat16 atol
+2e-2 (the reference's kernel-test tolerances), backward against autograd
+of the plain version float32 atol 1e-4 rtol 1e-4 (sums over up to 2048
+keys or rows in another order) and bfloat16 atol 5e-2 rtol 1.6e-2 (one
+bf16 rounding of gradients of magnitude up to ~10 on each side, and D
+formed from the bf16 output).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as fk
 from repro_torch.kernels import moe as mk
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pk
@@ -106,7 +112,7 @@ def test_paged_decode_kernel_rejects_what_it_does_not_take(cuda):
 def test_paged_decode_kernel_refuses_autograd(cuda):
     args = _inputs(2, 2, 2, 64, 4, 4, torch.float32, cuda)
     q = args[0].clone().requires_grad_(True)
-    with pytest.raises(RuntimeError, match="training slice"):
+    with pytest.raises(RuntimeError, match="no backward kernel"):
         pk.paged_decode_cuda(q, *args[1:])
     with torch.no_grad():
         pk.paged_decode_cuda(q, *args[1:])
@@ -249,10 +255,10 @@ def test_moe_ffn_through_the_kernels_matches_slot_and_ref(cuda):
 def test_moe_kernels_refuse_autograd(cuda):
     x, src, sw, eid, pos, w, _ = _moe_inputs(2, 24, 16, 4, 2, 1.25,
                                              torch.float32, cuda)
-    with pytest.raises(RuntimeError, match="training slice"):
+    with pytest.raises(RuntimeError, match="MoeDispatch / MoeCombine"):
         mk.moe_dispatch_cuda(x.clone().requires_grad_(True), src, sw)
     buf = mk.moe_dispatch_cuda(x, src, sw)
-    with pytest.raises(RuntimeError, match="training slice"):
+    with pytest.raises(RuntimeError, match="MoeDispatch / MoeCombine"):
         mk.moe_combine_cuda(buf, eid, pos, w.clone().requires_grad_(True))
     with torch.no_grad():
         mk.moe_combine_cuda(buf.clone().requires_grad_(True), eid, pos, w)
@@ -274,3 +280,198 @@ def test_moe_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="last axis"):
         mk.moe_combine_cuda(buf.transpose(2, 3).contiguous().transpose(2, 3),
                             eid, pos, w)
+
+
+def _moe_routing(G, S, D, E, K, cf, device):
+    """Tokens and ``moe_ffn``'s routing as the Functions take it: the flat
+    (G, S·K) eid/pos and keep mask, and (G, S, K) safe_pos and gates."""
+    r = np.random.default_rng(G * 100 + S)
+    x = torch.from_numpy(r.standard_normal((G, S, D), np.float32)).to(device)
+    router = torch.from_numpy(
+        (r.standard_normal((D, E)) / np.sqrt(D)).astype(np.float32)).to(device)
+    C = nn_moe.moe_capacity(S, E, K, cf)
+    _, gate, eid, pos, keep = nn_moe.moe_route(router, x, top_k=K,
+                                               capacity=C)
+    w = (gate.reshape(G, S * K) * keep).reshape(G, S, K)
+    safe = torch.where(keep, pos, 0).reshape(G, S, K)
+    return x, eid, pos, keep, safe, w, C
+
+
+@pytest.mark.parametrize("G,S,D,E,K,cf", [MOE_CASES[0], MOE_CASES[2],
+                                          MOE_CASES[3], MOE_CASES[6]])
+def test_moe_functions_gradients_match_slot_autograd(cuda, G, S, D, E, K,
+                                                     cf):
+    """dx through MoeDispatch (combine kernel) and dbuf / dw through
+    MoeCombine (dispatch kernel + gather-dot) against autograd of the slot
+    versions, float32 atol 1e-5 (dw 1e-4: a dot over D in another order);
+    wtok gets a zero gradient.  dw of a dropped pair is 0, as the
+    reference's backward masks it by keep; autograd of the slot version
+    leaves the unused dot there (the model multiplies it by keep = 0)."""
+    x, eid, pos, keep, safe, w, C = _moe_routing(G, S, D, E, K, cf, cuda)
+    r = np.random.default_rng(3)
+    wtok = keep.to(torch.float32)
+    n = (mk.moe_dispatch_cuda.launches, mk.moe_combine_cuda.launches)
+
+    def run(impl):
+        xi = x.clone().requires_grad_(True)
+        wt = wtok.clone().requires_grad_(True)
+        buf = ops.moe_dispatch(xi, eid, pos, wt, num_experts=E, capacity=C,
+                               top_k=K, impl=impl)
+        g_buf = torch.from_numpy(
+            r.standard_normal(tuple(buf.shape), np.float32)).to(cuda)
+        (dx, dwt) = torch.autograd.grad(buf, (xi, wt), g_buf,
+                                        allow_unused=True)
+        b = buf.detach().clone().requires_grad_(True)
+        wi = w.clone().requires_grad_(True)
+        y = ops.moe_combine(b, eid.reshape(G, S, K), safe, wi, impl=impl)
+        g_y = torch.from_numpy(
+            r.standard_normal(tuple(y.shape), np.float32)).to(cuda)
+        dbuf, dw = torch.autograd.grad(y, (b, wi), g_y)
+        return dx, dwt, dbuf, dw
+
+    got = run("cuda")
+    assert mk.moe_dispatch_cuda.launches == n[0] + 2   # fwd + combine's bwd
+    assert mk.moe_combine_cuda.launches == n[1] + 2    # fwd + dispatch's bwd
+    r = np.random.default_rng(3)
+    want = run("slot")
+    torch.cuda.synchronize()
+    assert got[1] is not None and not got[1].any()
+    kept = keep.reshape(G, S, K)
+    assert not got[3][~kept].any()
+    want = (*want[:3], torch.where(kept, want[3], 0.0))
+    for name, a, b, atol in zip(("dx", "dbuf", "dw"),
+                                (got[0], got[2], got[3]),
+                                (want[0], want[2], want[3]),
+                                (1e-5, 1e-5, 1e-4)):
+        torch.testing.assert_close(a, b, atol=atol, rtol=0, msg=name)
+
+
+# --------------------------------------------------------------------------
+# flash attention
+# --------------------------------------------------------------------------
+
+#: B, H, Sq, Sk, hd, causal, window, softcap: the reference sweep
+#: (tests/test_kernels.py), partial tiles, and llama3.2-1b's training
+#: shape cut to one microbatch row and 4 heads
+FLASH_CASES = [
+    (1, 1, 128, 128, 64, True, None, None),
+    (2, 2, 256, 256, 64, True, None, None),
+    (1, 2, 384, 384, 128, True, None, None),
+    (1, 1, 128, 128, 256, True, None, None),
+    (1, 2, 256, 256, 64, True, 32, None),
+    (1, 2, 256, 256, 64, True, 100, None),
+    (1, 2, 256, 256, 64, True, 128, None),
+    (1, 1, 128, 128, 64, True, None, 50.0),
+    (2, 1, 128, 256, 64, False, None, None),
+    (1, 2, 128, 384, 64, False, None, None),
+    (1, 2, 77, 77, 64, True, None, None),          # one partial tile
+    (1, 2, 300, 300, 128, True, 40, 30.0),         # partial tile, all masks
+    (1, 2, 100, 100, 256, False, 20, None),        # window, non-causal
+    (1, 4, 2048, 2048, 64, True, None, None),      # llama training length
+    (1, 2, 256, 128, 64, False, 20, None),         # rows 147.. see no key
+    (1, 2, 200, 64, 128, True, 16, 30.0),          # rows 79.. see no key
+]
+FLASH_FWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+FLASH_BWD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (5e-2, 1.6e-2)}
+
+
+def _flash_inputs(B, H, Sq, Sk, hd, dtype, device, seed=0):
+    r = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(r.standard_normal(s, np.float32)).to(
+        device, dtype) for s in ((B, H, Sq, hd), (B, H, Sk, hd),
+                                 (B, H, Sk, hd)))
+    do = torch.from_numpy(r.standard_normal((B, H, Sq, hd), np.float32)).to(
+        device, dtype)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Sq,Sk,hd,causal,window,cap", FLASH_CASES)
+def test_flash_forward_matches_plain(cuda, dtype, B, H, Sq, Sk, hd, causal,
+                                     window, cap):
+    q, k, v, _ = _flash_inputs(B, H, Sq, Sk, hd, dtype, cuda)
+    n = fk.flash_fwd_cuda.launches
+    o, lse = fk.flash_fwd_cuda(q, k, v, causal=causal, window=window,
+                               softcap=cap)
+    want = fk.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                  softcap=cap)
+    torch.cuda.synchronize()
+    assert fk.flash_fwd_cuda.launches == n + 1
+    assert o.dtype == dtype and lse.shape == (B, H, Sq)
+    assert bool(torch.isfinite(o.float()).all())
+    torch.testing.assert_close(o.float(), want.float(),
+                               atol=FLASH_FWD_TOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Sq,Sk,hd,causal,window,cap", FLASH_CASES)
+def test_flash_backward_matches_plain_autograd(cuda, dtype, B, H, Sq, Sk, hd,
+                                               causal, window, cap):
+    q, k, v, do = _flash_inputs(B, H, Sq, Sk, hd, dtype, cuda)
+    n = (fk.flash_bwd_dkdv_cuda.launches, fk.flash_bwd_dq_cuda.launches)
+
+    def grads(fn):
+        qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*qkv, causal=causal, window=window, softcap=cap)
+        return torch.autograd.grad(out, qkv, do)
+
+    got = grads(fk.flash_attention_cuda)
+    want = grads(fk.flash_attention_ref)
+    torch.cuda.synchronize()
+    assert (fk.flash_bwd_dkdv_cuda.launches,
+            fk.flash_bwd_dq_cuda.launches) == (n[0] + 1, n[1] + 1)
+    atol, rtol = FLASH_BWD_TOL[dtype]
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and bool(torch.isfinite(a.float()).all())
+        torch.testing.assert_close(a.float(), b.float(), atol=atol, rtol=rtol,
+                                   msg=name)
+
+
+def test_flash_backward_is_deterministic(cuda):
+    q, k, v, do = _flash_inputs(2, 4, 512, 512, 64, torch.float32, cuda)
+    qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = fk.flash_attention_cuda(*qkv, causal=True)
+    first = torch.autograd.grad(out, qkv, do, retain_graph=True)
+    for _ in range(3):
+        again = torch.autograd.grad(out, qkv, do, retain_graph=True)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+def test_flash_ops_pads_as_the_reference(cuda):
+    """ops.flash_attention hands a causal 200-token sequence to the kernels
+    unpadded (one launch of each, at Sq = 200); forward and gradients
+    agree with the plain version.  A non-causal Sk off the reference's
+    block multiple, which the reference refuses, equals the plain version
+    too."""
+    q, k, v, do = _flash_inputs(1, 2, 200, 200, 64, torch.float32, cuda)
+    qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    n = fk.flash_fwd_cuda.launches
+    out = ops.flash_attention(*qkv, causal=True)
+    assert out.shape == q.shape and fk.flash_fwd_cuda.launches == n + 1
+    got = torch.autograd.grad(out, qkv, do)
+    qkv2 = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = ops.flash_attention(*qkv2, causal=True, impl="ref")
+    want = torch.autograd.grad(ref, qkv2, do)
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=0)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    q1 = q[:, :, :128].contiguous()
+    torch.testing.assert_close(
+        ops.flash_attention(q1, k, v, causal=False),
+        ops.flash_attention(q1, k, v, causal=False, impl="ref"),
+        atol=2e-5, rtol=0)
+
+
+def test_flash_kernels_reject_what_they_do_not_take(cuda):
+    q, k, v, _ = _flash_inputs(1, 2, 64, 64, 64, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fk.flash_fwd_cuda(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                          v[..., :32].contiguous())
+    with pytest.raises(ValueError, match="one dtype"):
+        fk.flash_fwd_cuda(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        fk.flash_fwd_cuda(q.transpose(2, 3).contiguous().transpose(2, 3), k,
+                          v)
+    with pytest.raises(RuntimeError, match="FlashAttention"):
+        fk.flash_fwd_cuda(q.clone().requires_grad_(True), k, v)

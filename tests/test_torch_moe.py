@@ -331,13 +331,17 @@ def test_wrappers_take_cuda_tensors_only():
 
 
 def test_refuse_autograd_names_the_training_slice():
+    """The refusal names where the gradient comes from instead: for the
+    MoE launchers, the training slice's autograd Functions."""
     a = torch.zeros(3, requires_grad=True)
-    with pytest.raises(RuntimeError, match="training slice"):
-        _build.refuse_autograd("k", torch.zeros(2, dtype=torch.int32), a)
+    why = "its gradient comes from MoeDispatch"
+    with pytest.raises(RuntimeError, match=why):
+        _build.refuse_autograd("k", torch.zeros(2, dtype=torch.int32), a,
+                               reason=why)
     with torch.no_grad():
-        _build.refuse_autograd("k", a)
-    _build.refuse_autograd("k", torch.zeros(3), torch.zeros(2,
-                                                            dtype=torch.int32))
+        _build.refuse_autograd("k", a, reason=why)
+    _build.refuse_autograd("k", torch.zeros(3),
+                           torch.zeros(2, dtype=torch.int32), reason=why)
 
 
 def test_plain_versions_stay_differentiable():
