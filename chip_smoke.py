@@ -23,7 +23,9 @@ result lines:
              reference sweep and partial tiles (float32 atol 2e-5,
              bfloat16 2e-2) and its dq / dk / dv against autograd of the
              plain version (float32 atol 1e-4 rtol 1e-4, bfloat16 atol
-             5e-2 rtol 1.6e-2);
+             5e-2 rtol 1.6e-2); embedding bag at the reference sweep, the
+             CTR pulls, duplicate and out-of-range ids (float32 atol 1e-5,
+             bfloat16 5e-2, a bag of one bit-equal to a gather);
 4. serve   — ``serve_continuous`` of llama3.2-1b at full width (16
              layers, d_model 2048, random weights from a seed, float32) on
              a mix of prompts of 64-512 tokens, counting kernel launches
@@ -48,7 +50,19 @@ result lines:
              full width and 2 layers;
 9. train profile — one profiled full-width llama train step: host clock,
              device busy split by kernel, idle share;
-10. timing — each kernel at its main path's shapes beside its bound, its
+10. ctr    — ``train_sparse_ps(steps=200)`` at ``CTRConfig()``'s full
+             size (200,000 x 16 table in 4 in-process shard servers, tower
+             416 -> 512 -> 512 -> 256 -> 1, batch 256) on the card, in sync
+             and then async mode: 3 re-pins, a hot-cache hit fraction, the
+             tower and the cache on the card, one embedding_bag launch per
+             pull that found the cache; sync again with the lookups forced
+             to the plain gather (losses bit-equal: the push is
+             deterministic); the same sync run on the CPU's plain path
+             (losses within 1e-4); 1,000 sync steps, over which the loss
+             falls (the 200-step runs are too short to learn); 60 steps
+             over 4 shard processes (losses bit-equal to in-process); a
+             profiled window of sync steps (device idle share);
+11. timing — each kernel at its main path's shapes beside its bound, its
              plain version and, where one exists, a library call (CUDA
              events, median of repeats, L2 flushed or exceeded).
 
@@ -76,7 +90,9 @@ F32_FLOPS = 67e12                # H100 SXM float32 outside the tensor cores
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 MOE_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 BF16_TC_FLOPS = 989e12           # H100 SXM dense bfloat16 tensor cores
-KERNELS = ("paged_decode", "moe", "flash_attention")   # csrc/<name>.cu
+KERNELS = ("paged_decode", "moe", "flash_attention",   # csrc/<name>.cu
+           "embedding_bag")
+BAG_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 FLASH_BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (5e-2, 1.6e-2)}
 
@@ -406,6 +422,67 @@ def phase_flash_kernels(torch, fk):
     return worst
 
 
+#: (label, N, bag, V, dim): the reference sweep (tests/test_kernels.py),
+#: the CTR path's pulls (the hot-cache lookup of a whole batch, and the
+#: batch's 26 slots pooled from the full table) and ragged widths
+BAG_CASES = [
+    ("test N8 bag4 V100 dim128", 8, 4, 100, 128),
+    ("test N16 bag1 V50 dim128", 16, 1, 50, 128),
+    ("test N4 bag16 V1000 dim256", 4, 16, 1000, 256),
+    ("ctr hot-cache lookup N6656 bag1 V4096 dim16", 6656, 1, 4096, 16),
+    ("ctr pooled N256 bag26 V200000 dim16", 256, 26, 200_000, 16),
+    ("ragged N7 bag3 V50 dim5", 7, 3, 50, 5),
+    ("ragged N33 bag5 V64 dim12", 33, 5, 64, 12),
+]
+
+
+def phase_bag_kernels(torch, bk):
+    """embedding_bag against its plain version; a bag of one bit-equal to
+    a gather; duplicate ids; out-of-range ids (negative, past the table,
+    past int32 in int64) clamped."""
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+
+    def held(label, dname, ids, table):
+        got = bk.embedding_bag_cuda(ids, table)
+        want = bk.embedding_bag_ref(ids, table)
+        torch.cuda.synchronize()
+        check(got.dtype == table.dtype and bool(
+            torch.isfinite(got.float()).all()), f"{label} {dname}: output")
+        err = (got.float() - want.float()).abs().max().item()
+        worst[dname] = max(worst[dname], err)
+        check(err <= BAG_TOL[dname], f"{label} {dname}: max|kernel-plain| "
+              f"{err:.3e} > {BAG_TOL[dname]:.0e}")
+        return got
+
+    g = torch.Generator(device="cuda")
+    for label, N, bag, V, dim in BAG_CASES:
+        g.manual_seed(len(label))
+        for dname in ("float32", "bfloat16"):
+            dt = getattr(torch, dname)
+            ids = torch.randint(0, V, (N, bag), generator=g, device="cuda",
+                                dtype=torch.int32)
+            table = torch.randn((V, dim), generator=g, device="cuda").to(dt)
+            got = held(label, dname, ids, table)
+            if bag == 1:
+                check(torch.equal(got, table[ids[:, 0].long()]),
+                      f"{label} {dname}: a bag of one is not bit-equal to "
+                      "a gather")
+        say("kernels", f"embedding_bag ok: {label}")
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+        table = torch.randn((40, 16), generator=g, device="cuda").to(dt)
+        dup = torch.zeros((4, 8), dtype=torch.int32, device="cuda")
+        held("duplicates", dname, dup, table)
+        ids = torch.randint(-9, 50, (64, 6), generator=g, device="cuda")
+        ids[3, 2] = 2 ** 40
+        held("out of range (int64)", dname, ids, table)
+        held("out of range (int32)", dname, ids.clamp(-9, 50).int(), table)
+    say("kernels", "embedding_bag ok: duplicates; out-of-range ids clamped")
+    say("kernels", f"embedding_bag max|err| float32 {worst['float32']:.3e} "
+        f"(atol 1e-5), bfloat16 {worst['bfloat16']:.3e} (atol 5e-2)")
+    return worst
+
+
 # --------------------------------------------------------------------------
 # phases 4 and 6: the main paths
 # --------------------------------------------------------------------------
@@ -600,7 +677,8 @@ def phase_moe(torch, counters):
 
 #: kernel-name fragments of the profile's device-time split, checked in
 #: this order ("rest" takes what matches none)
-PROFILE_SPLIT = (("paged_decode", ("paged_decode",)),
+PROFILE_SPLIT = (("embedding_bag", ("embedding_bag",)),
+                 ("paged_decode", ("paged_decode",)),
                  ("moe_dispatch", ("dispatch_kernel",)),
                  ("moe_combine", ("combine_kernel",)),
                  ("flash_fwd", ("fwd_kernel",)),
@@ -845,6 +923,144 @@ def phase_train_profile(torch):
         f"{len(tensors)} state and metric tensors on the card")
     return {"host_ms": wall_ms, "device_ms": dev_ms, "split_ms": split,
             "idle": idle, "launches": launches}
+
+
+# --------------------------------------------------------------------------
+# phase 10: CTR training over the parameter server
+# --------------------------------------------------------------------------
+
+#: the CTR runs: steps of the main-path runs (re-pins at 50, 100, 150),
+#: of the learning run, and of the multiproc run (re-pins at 20, 40)
+CTR_STEPS, CTR_LEARN_STEPS, CTR_MP_STEPS = 200, 1000, 60
+
+
+def ctr_line(label, out, launches):
+    say("ctr", f"{label}: {out['steps']} steps, {out['steps_per_sec']:.1f} "
+        f"steps/s; pull {out['pull_seconds'] / out['steps'] * 1e3:.3f} ms, "
+        f"push {out['push_seconds'] / out['steps'] * 1e3:.3f} ms per step; "
+        f"loss {out['first_loss']:.4f} -> {out['last_loss']:.4f} "
+        f"(loss_decreased {out['loss_decreased']}); {out['repins']} re-pins, "
+        f"hot-pull fraction {out['hot_pull_fraction']:.4f}, "
+        f"{out['hot_pulls']} pulls found the cache, embedding_bag "
+        f"launches {launches}")
+
+
+def counted_ctr(torch, bk, label, run):
+    """``run()`` with the embedding_bag count set to 0 just before it and
+    read just after; checks the summary and that the kernel launched once
+    for every pull that found the cache."""
+    bk.embedding_bag_cuda.launches = 0
+    out = run()
+    launches = bk.embedding_bag_cuda.launches
+    ctr_line(label, out, launches)
+    check(all(math.isfinite(x) for x in out["losses"]),
+          f"{label}: non-finite loss")
+    check(out["hot_pulls"] > 0 and launches == out["hot_pulls"],
+          f"{label}: {launches} embedding_bag launches for "
+          f"{out['hot_pulls']} pulls that found the cache")
+    check(out["hot_pull_fraction"] > 0, f"{label}: no pull hit the cache")
+    return out, launches
+
+
+def phase_ctr(torch, bk):
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.train import train_sparse_ps
+    from repro_torch.ps.workload import CTRConfig, make_table, train_ctr_ps
+
+    cfg = CTRConfig()
+    say("ctr", f"CTRConfig(): vocab {cfg.vocab}, emb_dim {cfg.emb_dim}, "
+        f"{cfg.slots} slots, tower {cfg.tower}, batch {cfg.batch}; 4 "
+        "in-process shard servers, hot cache of 4,096 rows on the card")
+    runs, launches = {}, {}
+    for mode in ("sync", "async"):
+        runs[mode], launches[mode] = counted_ctr(
+            torch, bk, f"{mode} (train_sparse_ps, kernel)",
+            lambda: train_sparse_ps(steps=CTR_STEPS, num_shards=4,
+                                    sync=mode == "sync", log_every=0,
+                                    device="cuda"))
+        out = runs[mode]
+        check(out["repins"] == 3, f"{mode}: {out['repins']} re-pins, not 3")
+        check(out["devices"] == {"tower": ["cuda:0"],
+                                 "hot_cache": "cuda:0"},
+              f"{mode}: devices {out['devices']}")
+    check(runs["sync"]["hot_pulls"] == CTR_STEPS - 51,
+          f"sync: {runs['sync']['hot_pulls']} pulls found the cache, not "
+          f"{CTR_STEPS - 51} (every pull after the first re-pin)")
+
+    # the same sync run with the lookups forced to the plain gather
+    table = make_table(cfg, 4, device="cuda", impl="ref")
+    bk.embedding_bag_cuda.launches = 0
+    try:
+        plain = train_ctr_ps(cfg, steps=CTR_STEPS, mode="sync", table=table)
+    finally:
+        table.close()
+    check(bk.embedding_bag_cuda.launches == 0, "the plain run launched the "
+          "kernel")
+    check(plain["losses"] == runs["sync"]["losses"],
+          "sync losses through the kernel differ from the plain gather's")
+    say("ctr", f"sync with the plain gather: {CTR_STEPS} losses bit-equal "
+        "to the kernel run's")
+
+    # the CPU's plain path, the same arithmetic in another summation order
+    cpu = train_ctr_ps(cfg, steps=CTR_STEPS, mode="sync", device="cpu")
+    dl = max(abs(a - b) for a, b in zip(cpu["losses"],
+                                        runs["sync"]["losses"]))
+    check(dl <= 1e-4, f"card vs CPU losses differ by {dl:.3e} > 1e-4")
+    say("ctr", f"sync on the CPU's plain path: max|dloss| {dl:.3e} over "
+        f"{CTR_STEPS} steps (atol 1e-4); {cpu['steps_per_sec']:.1f} steps/s")
+
+    # learning: 200 steps are too short for the zipf tail's rows to learn
+    # (the reference's 200-step trajectory is flat too); 1,000 are not
+    learn, learn_launches = counted_ctr(
+        torch, bk, "learning run (sync, kernel)",
+        lambda: train_ctr_ps(cfg, steps=CTR_LEARN_STEPS, mode="sync",
+                             device="cuda"))
+    head = statistics.fmean(learn["losses"][:100])
+    tail = statistics.fmean(learn["losses"][-100:])
+    check(learn["losses"][:CTR_STEPS] == runs["sync"]["losses"],
+          "the learning run's first 200 losses differ from the sync run's")
+    check(tail < head - 0.002, f"loss did not fall over {CTR_LEARN_STEPS} "
+          f"steps: first 100 mean {head:.4f}, last 100 {tail:.4f}")
+    say("ctr", f"learning: mean loss of the first 100 steps {head:.4f}, of "
+        f"the last 100 {tail:.4f}")
+
+    # shard servers as processes: the same values as in-process
+    mp, mp_launches = counted_ctr(
+        torch, bk, "multiproc (train_sparse_ps, sync, 4 shard processes)",
+        lambda: train_sparse_ps(steps=CTR_MP_STEPS, sync=True,
+                                repin_interval=20, transport="multiproc",
+                                log_every=0, device="cuda"))
+    check(mp["repins"] == 2, f"multiproc: {mp['repins']} re-pins, not 2")
+    check(mp["losses"] == runs["sync"]["losses"][:CTR_MP_STEPS],
+          "multiproc losses differ from the in-process run's")
+    say("ctr", "multiproc: losses bit-equal to the in-process run's")
+
+    # a profiled window of sync steps (the table built before it)
+    table = make_table(cfg, 4, device="cuda")
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            win = train_ctr_ps(cfg, steps=60, mode="sync", table=table)
+    finally:
+        table.close()
+    steps = win["steps"]
+    dev_ms, split, kl = device_split(torch, prof, steps, "ctr")
+    # the idle share against the unprofiled sync run's step time (the
+    # profiler's own host cost stays out of it)
+    wall_ms = 1e3 / runs["sync"]["steps_per_sec"]
+    idle = 1.0 - dev_ms / wall_ms
+    parts = ", ".join(f"{n} {t:.4f}" for n, t in split.items() if t)
+    say("profile", f"ctr sync step: host clock {wall_ms:.3f} ms/step "
+        f"unprofiled ({win['seconds'] * 1e3 / steps:.3f} in the 60 profiled "
+        f"steps, re-pin at 50: pull "
+        f"{win['pull_seconds'] / steps * 1e3:.3f} ms, push "
+        f"{win['push_seconds'] / steps * 1e3:.3f} ms); device busy "
+        f"{dev_ms:.4f} ms/step ({parts}); device idle share {idle:.4f}; "
+        f"{kl:.0f} kernel launches/step")
+    return {"launches": launches, "mp_launches": mp_launches,
+            "learn_launches": learn_launches, "runs": runs,
+            "idle_share": idle}
 
 
 # --------------------------------------------------------------------------
@@ -1109,6 +1325,53 @@ def phase_flash_timing(torch, fk):
     return res
 
 
+def phase_bag_timing(torch, bk):
+    """embedding_bag in float32 at the CTR hot-cache lookup, the reference
+    benchmark's pooled shape (benchmarks/bench_kernels.py) and a large
+    pooled shape, beside its byte bound, the plain version and
+    ``F.embedding_bag(mode="sum")``; L2 flushed before each call."""
+    F = torch.nn.functional
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    res = {}
+    for label, N, bag, V, dim in (
+            ("ctr hot-cache lookup", 6656, 1, 4096, 16),
+            ("bench pooled", 256, 26, 100_000, 128),
+            ("large pooled", 16_384, 26, 1_000_000, 128)):
+        ids = torch.randint(0, V, (N, bag), generator=g, device="cuda",
+                            dtype=torch.int32)
+        table = torch.randn((V, dim), generator=g, device="cuda")
+        ids64 = ids.long()
+        lib = F.embedding_bag(ids64, table, mode="sum")
+        want = bk.embedding_bag_ref(ids, table)
+        err = (lib - want).abs().max().item()
+        check(err <= BAG_TOL["float32"], f"{label}: F.embedding_bag "
+              f"disagrees with the plain version by {err:.3e}")
+        kern = time_cold_ms(torch, bk.embedding_bag_cuda, (ids, table), flush)
+        plain = time_cold_ms(torch, bk.embedding_bag_ref, (ids, table), flush)
+        lib_ms = time_cold_ms(
+            torch, lambda i, t: F.embedding_bag(i, t, mode="sum"),
+            (ids64, table), flush)
+        # the least bytes: the ids, each distinct row they name, the output
+        rows = torch.unique(ids).numel()
+        nbytes = N * bag * 4 + rows * dim * 4 + N * dim * 4
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = N * bag * dim / F32_FLOPS * 1e3
+        bound = max(t_bytes, t_ops)
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        res[label] = {"ms": kern, "plain_ms": plain, "bound_ms": bound,
+                      "bound_by": by, "library_ms": lib_ms, "bytes": nbytes,
+                      "shape": f"N{N} bag{bag} V{V} dim{dim}"}
+        say("timing", f"embedding_bag {label} N{N} bag{bag} V{V} dim{dim} "
+            f"float32: kernel {kern:.4f} ms, bound {bound:.4f} ms ({by}: "
+            f"{nbytes} bytes, {rows} distinct rows), plain {plain:.4f} ms, "
+            f"F.embedding_bag {lib_ms:.4f} ms")
+        del ids, ids64, table, lib, want
+        torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a "
@@ -1137,6 +1400,7 @@ def main() -> int:
 
     # 2. build: one nvcc per kernel source, all started together
     from repro_torch.kernels import _build
+    from repro_torch.kernels import embedding_bag as bk
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import moe as mk
     from repro_torch.kernels import paged_attention as pk
@@ -1161,6 +1425,7 @@ def main() -> int:
     moe_worst = phase_moe_kernels(torch, mk)
     moe_bwd = phase_moe_backward(torch, mk)
     flash_worst = phase_flash_kernels(torch, fk)
+    bag_worst = phase_bag_kernels(torch, bk)
 
     # 4.-5. llama3.2-1b, then its state is freed before olmoe's 27.7 GB
     llama_launches, state = phase_serve(torch, counters)
@@ -1182,10 +1447,15 @@ def main() -> int:
     phase_train_profile(torch)
     torch.cuda.empty_cache()
 
-    # 10. timing
+    # 10. CTR training over the parameter server
+    ctr = phase_ctr(torch, bk)
+    torch.cuda.empty_cache()
+
+    # 11. timing
     timing = phase_timing(torch, pk)
     moe_timing = phase_moe_timing(torch, mk)
     flash_timing = phase_flash_timing(torch, fk)
+    bag_timing = phase_bag_timing(torch, bk)
 
     paths = (("llama3.2-1b serve", llama_launches),
              ("olmoe-1b-7b serve", moe_launches),
@@ -1241,6 +1511,21 @@ def main() -> int:
                 "parts": ["flash_bwd_dkdv", "flash_bwd_dq"],
                 **{k: total["float32"][k] for k in TIMED},
                 "bfloat16": {k: total["bfloat16"][k] for k in TIMED}}
+    t = bag_timing["ctr hot-cache lookup"]
+    kernels.append({
+        "name": "embedding_bag", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
+        "replaces": "src/repro/kernels/embedding_bag.py:43",
+        "launches": sum(ctr["launches"].values()),
+        "launches_by_path": {f"ctr train_sparse_ps {m}, {CTR_STEPS} steps": n
+                             for m, n in ctr["launches"].items()},
+        "max_abs_err": bag_worst["float32"],
+        "max_abs_err_bf16": bag_worst["bfloat16"],
+        **{k: t[k] for k in TIMED}, "shape": t["shape"] + " (CTR hot-cache "
+        "lookup), float32",
+        **{label: bag_timing[label] for label in ("bench pooled",
+                                                   "large pooled")},
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

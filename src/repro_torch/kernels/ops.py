@@ -9,6 +9,7 @@ nothing falls back.
 
 from __future__ import annotations
 
+from repro_torch.kernels import embedding_bag as bag_k
 from repro_torch.kernels import flash_attention as flash_k
 from repro_torch.kernels import moe as moe_k
 from repro_torch.kernels import paged_attention as paged_k
@@ -40,6 +41,26 @@ def flash_attention(q, k, v, *, causal: bool = True,
                          f"{q.device}")
     return flash_k.flash_attention_cuda(q, k, v, causal=causal,
                                         window=window, softcap=softcap)
+
+
+def embedding_bag(ids, table, *, impl: str = "auto"):
+    """Sum-pooled lookup: ids ``(N, bag)`` into table ``(V, dim)`` →
+    ``(N, dim)`` in the table's dtype, summed in float32, ids clamped
+    into the table.
+
+    ``auto``: the CUDA kernel (:func:`bag_k.embedding_bag_cuda`) for CUDA
+    tensors, the plain :func:`bag_k.embedding_bag_ref` for CPU tensors;
+    ``ref`` forces the plain version on any device; ``cuda`` forces the
+    kernel and raises for CPU tensors."""
+    if impl not in ("auto", "ref", "cuda"):
+        raise ValueError(f"unknown embedding-bag impl {impl!r}: expected "
+                         "auto/ref/cuda")
+    if impl == "ref" or (impl == "auto" and not table.is_cuda):
+        return bag_k.embedding_bag_ref(ids, table)
+    if not table.is_cuda:
+        raise ValueError("impl='cuda' needs CUDA tensors; the table lies on "
+                         f"{table.device}")
+    return bag_k.embedding_bag_cuda(ids, table)
 
 
 def paged_attention_decode(q, k_pages, v_pages, page_table, q_pos, *,

@@ -1,4 +1,4 @@
-"""Training launcher (port of the dense half of ``repro.launch.train``).
+"""Training launcher (port of ``repro.launch.train``).
 
 Trains an arch end to end on synthetic Zipfian tokens: prefetch,
 microbatched AdamW steps through ``models.decoder.loss_fn`` (flash
@@ -10,8 +10,18 @@ backward, on a CUDA device), checkpointing and metrics.
   PYTHONPATH=src python -m repro_torch.launch.train --full --device cuda \\
       --steps 3 --batch 8 --seq 2048 --microbatch 4
 
-The sparse parameter-server path (``--sparse-ps`` and its flags) waits
-for the CTR/PS slice (ROADMAP.md queue 1 item 11).
+``--sparse-ps`` switches to the sparse path: the CTR model trained over
+the sharded parameter server (``repro_torch.ps``), the tower and the
+hot-row cache on the device, the shards in host memory, with async
+double-buffered pull/push overlap and tier-aware row placement:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --sparse-ps \\
+      --steps 200 --ps-shards 4 --device cuda
+
+The elastic fleet's flags (``--ps-optimizer`` other than ``none``,
+``--ps-event``, ``--ckpt-dir``/``--ckpt-every``, ``--ps-fault``) and
+``--replan`` raise ``NotImplementedError``: they wait for ROADMAP.md queue
+1 items 11 and 9.
 """
 
 from __future__ import annotations
@@ -99,6 +109,52 @@ def train(arch, *, reduced: bool = True, steps: int = 50, batch: int = 8,
     }
 
 
+#: what the elastic fleet and the re-planner would need
+ELASTIC_TODO = ("the elastic PS fleet (PS-hosted optimizers, scripted fleet "
+                "events, fault injection, fleet checkpoints) is not ported "
+                "yet: ROADMAP.md queue 1 item 11")
+REPLAN_TODO = ("--replan needs the scheduler's fused search, which is not "
+               "ported yet: ROADMAP.md queue 1 item 9")
+
+
+def train_sparse_ps(*, steps: int, batch: int | None = None,
+                    lr: float | None = None, num_shards: int = 4,
+                    sync: bool = False, partition: str = "mod",
+                    repin_interval: int = 50, log_every: int = 10,
+                    transport: str | None = None, device=None,
+                    optimizer: str = "none", events=None,
+                    ckpt_dir: str | None = None, ckpt_every: int = 0,
+                    fault_schedule: str | None = None,
+                    replan: bool = False) -> dict:
+    """The ``--sparse-ps`` path: the CTR model over the sharded PS
+    (``repro_torch.ps``) on ``device`` (default ``cuda``) — async
+    double-buffered pull/push unless ``sync``.  ``batch``/``lr`` default
+    to the CTR workload's own values; ``transport`` picks the PS backend
+    (``inproc`` | ``multiproc``).
+
+    ``optimizer`` other than ``"none"``, ``events``, ``ckpt_dir`` /
+    ``ckpt_every`` and ``fault_schedule`` need the elastic fleet, and
+    ``replan`` the scheduler: each raises ``NotImplementedError`` naming
+    its ROADMAP item rather than running something else."""
+    import dataclasses
+
+    from repro_torch.ps.workload import CTRConfig, train_ctr_ps
+
+    if optimizer != "none" or events or ckpt_dir or ckpt_every \
+            or fault_schedule:
+        raise NotImplementedError(ELASTIC_TODO)
+    if replan:
+        raise NotImplementedError(REPLAN_TODO)
+    overrides = {k: v for k, v in (("batch", batch), ("lr", lr))
+                 if v is not None}
+    cfg = dataclasses.replace(CTRConfig(), **overrides)
+    return train_ctr_ps(cfg, steps=steps, num_shards=num_shards,
+                        mode="sync" if sync else "async",
+                        partition=partition, repin_interval=repin_interval,
+                        log_every=log_every, transport=transport,
+                        device=device)
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description="Train an arch of the PyTorch/CUDA port on synthetic "
@@ -112,11 +168,40 @@ def build_parser() -> argparse.ArgumentParser:
                     help="torch device (default: cuda; pass cpu for the "
                          "plain PyTorch path)")
     ap.add_argument("--steps", type=int, default=50)
-    ap.add_argument("--batch", type=int, default=8)
+    # batch/lr defaults depend on the path (dense: 8 / 3e-4; sparse-ps:
+    # the CTR workload's 256 / 0.05), so resolve after parsing
+    ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--seq", type=int, default=128)
-    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--lr", type=float, default=None)
     ap.add_argument("--microbatch", type=int, default=None)
     ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--sparse-ps", action="store_true",
+                    help="train the CTR workload over the sharded "
+                         "parameter server instead of a dense arch")
+    ap.add_argument("--ps-shards", type=int, default=4)
+    ap.add_argument("--ps-sync", action="store_true",
+                    help="synchronous pull→compute→push (no overlap)")
+    ap.add_argument("--ps-partition", choices=("mod", "block"), default="mod")
+    ap.add_argument("--ps-transport", choices=("inproc", "multiproc"),
+                    default=None,
+                    help="PS backend: in-process queues (default) or one "
+                         "worker process per shard")
+    ap.add_argument("--ps-optimizer",
+                    choices=("none", "sgd", "adagrad", "adam"),
+                    default="none",
+                    help="PS-hosted optimizer; any value but 'none' needs "
+                         "the elastic fleet (not ported: raises)")
+    ap.add_argument("--ps-event", action="append", default=[],
+                    metavar="STEP:ACTION[:SHARD]",
+                    help="scripted elastic fleet event (not ported: raises)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="unified fleet checkpoints (not ported: raises)")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="fleet checkpoint cadence (not ported: raises)")
+    ap.add_argument("--ps-fault", default=None, metavar="RULE[;RULE...]",
+                    help="deterministic fault schedule (not ported: raises)")
+    ap.add_argument("--replan", action="store_true",
+                    help="reactive re-planning (not ported: raises)")
     ap.add_argument("--obs-dir", default=None,
                     help="enable observability and write trace.json + "
                          "metrics.jsonl to this directory")
@@ -126,11 +211,27 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> None:
     args = build_parser().parse_args(argv)
     if args.obs_dir:
+        # before any transport spawn, so shard workers inherit REPRO_OBS
         obs.configure(run_dir=args.obs_dir)
-    summary = train(args.arch, reduced=args.reduced, steps=args.steps,
-                    batch=args.batch, seq=args.seq, lr=args.lr,
-                    microbatch=args.microbatch,
-                    checkpoint_dir=args.checkpoint_dir, device=args.device)
+    if args.sparse_ps:
+        summary = train_sparse_ps(
+            steps=args.steps, batch=args.batch, lr=args.lr,
+            num_shards=args.ps_shards, sync=args.ps_sync,
+            partition=args.ps_partition, transport=args.ps_transport,
+            device=args.device, optimizer=args.ps_optimizer,
+            events=args.ps_event, ckpt_dir=args.ckpt_dir,
+            ckpt_every=args.ckpt_every, fault_schedule=args.ps_fault,
+            replan=args.replan)
+        for key in ("step_times", "step_ts", "losses"):
+            summary.pop(key)
+    else:
+        summary = train(args.arch, reduced=args.reduced, steps=args.steps,
+                        batch=args.batch if args.batch is not None else 8,
+                        seq=args.seq,
+                        lr=args.lr if args.lr is not None else 3e-4,
+                        microbatch=args.microbatch,
+                        checkpoint_dir=args.checkpoint_dir,
+                        device=args.device)
     if args.obs_dir:
         summary["obs"] = obs.flush()
     print(json.dumps(summary, indent=2))

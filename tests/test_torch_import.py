@@ -19,7 +19,10 @@ MODULES = ["repro_torch", "repro_torch.launch.serve",
            "repro_torch.kernels.moe", "repro_torch.kernels.flash_attention",
            "repro_torch.launch.train", "repro_torch.launch.steps",
            "repro_torch.optim", "repro_torch.data",
-           "repro_torch.checkpoint", "repro_torch.tree"]
+           "repro_torch.checkpoint", "repro_torch.tree",
+           "repro_torch.kernels.embedding_bag", "repro_torch.parallel.ps",
+           "repro_torch.ps.sharding", "repro_torch.ps.workload",
+           "repro_torch.ps.client", "repro_torch.ps.server"]
 
 
 @pytest.fixture(scope="module")

@@ -15,13 +15,17 @@ in bf16); flash attention forward float32 atol 2e-5 and bfloat16 atol
 of the plain version float32 atol 1e-4 rtol 1e-4 (sums over up to 2048
 keys or rows in another order) and bfloat16 atol 5e-2 rtol 1.6e-2 (one
 bf16 rounding of gradients of magnitude up to ~10 on each side, and D
-formed from the bf16 output).
+formed from the bf16 output); embedding bag float32 atol 1e-5 and
+bfloat16 atol 5e-2 (the reference's kernel-test tolerances: both sum in
+f32, in another order), bag 1 bit-equal to a gather (``0 + row``); the
+CTR path on the card bit-equal to the same path with the plain gather.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import embedding_bag as bk
 from repro_torch.kernels import flash_attention as fk
 from repro_torch.kernels import moe as mk
 from repro_torch.kernels import ops
@@ -475,3 +479,132 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
                           v)
     with pytest.raises(RuntimeError, match="FlashAttention"):
         fk.flash_fwd_cuda(q.clone().requires_grad_(True), k, v)
+
+
+# --------------------------------------------------------------------------
+# embedding bag
+# --------------------------------------------------------------------------
+
+BAG_CASES = [
+    # N, bag, V, dim: the reference sweep, the CTR pulls, ragged widths
+    (8, 4, 100, 128), (16, 1, 50, 128), (4, 16, 1000, 256),
+    (6656, 1, 4096, 16), (256, 26, 200_000, 16),
+    (7, 3, 50, 5), (33, 5, 64, 12), (9, 2, 300, 1000),
+]
+BAG_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
+
+
+def _bag_inputs(N, bag, V, dim, dtype, device, seed=0):
+    r = np.random.default_rng(seed)
+    ids = torch.from_numpy(r.integers(0, V, (N, bag)).astype(np.int32))
+    table = torch.from_numpy(r.standard_normal((V, dim), np.float32))
+    return ids.to(device), table.to(device, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,bag,V,dim", BAG_CASES)
+def test_embedding_bag_kernel_matches_plain(cuda, dtype, N, bag, V, dim):
+    ids, table = _bag_inputs(N, bag, V, dim, dtype, cuda)
+    n = bk.embedding_bag_cuda.launches
+    got = ops.embedding_bag(ids, table)
+    want = ops.embedding_bag(ids, table, impl="ref")
+    torch.cuda.synchronize()
+    assert bk.embedding_bag_cuda.launches == n + 1
+    assert got.dtype == dtype and got.shape == (N, dim)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=BAG_TOL[dtype], rtol=0)
+    if bag == 1:
+        assert torch.equal(got, table[ids[:, 0].long()])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_bag_kernel_clamps_and_takes_int64(cuda, dtype):
+    ids, table = _bag_inputs(64, 6, 40, 16, dtype, cuda)
+    ids[::3, 1] = -5
+    ids[1::3, 4] = 40 + 7
+    ids64 = ids.long()
+    ids64[5, 0] = 2 ** 40                         # past int32: clamps too
+    for i in (ids, ids64):
+        torch.testing.assert_close(
+            bk.embedding_bag_cuda(i, table).float(),
+            bk.embedding_bag_ref(i, table).float(),
+            atol=BAG_TOL[dtype], rtol=0)
+    dup = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
+    torch.testing.assert_close(bk.embedding_bag_cuda(dup, table.float()),
+                               8 * table[0].float().expand(4, -1),
+                               atol=0, rtol=1e-6)
+
+
+def test_embedding_bag_kernel_rejects_what_it_does_not_take(cuda):
+    ids, table = _bag_inputs(4, 2, 10, 8, torch.float32, cuda)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        bk.embedding_bag_cuda(ids.cpu(), table)
+    with pytest.raises(ValueError, match="dtype"):
+        bk.embedding_bag_cuda(ids, table.half())
+    with pytest.raises(ValueError, match="ids dtype"):
+        bk.embedding_bag_cuda(ids.to(torch.int16), table)
+    with pytest.raises(ValueError, match=r"\(N, bag\)"):
+        bk.embedding_bag_cuda(ids[:, 0], table)
+    with pytest.raises(RuntimeError, match="no backward"):
+        bk.embedding_bag_cuda(ids, table.clone().requires_grad_(True))
+
+
+def test_sharded_table_on_the_card_matches_the_host_table(cuda):
+    """Pulls (cold and through the hot cache), pushes with and without
+    dedup and a re-pin: the card's table is bit-equal to the CPU one, and
+    every pull that finds the cache launches the kernel once."""
+    from repro_torch.ps import ShardedTable
+
+    r = np.random.default_rng(0)
+    dense = r.standard_normal((101, 8)).astype(np.float32)
+    tables = [ShardedTable.from_dense(dense, 3, device=d, hot_capacity=16)
+              for d in ("cpu", cuda)]
+    try:
+        n = bk.embedding_bag_cuda.launches
+        for step in range(6):
+            ids = r.integers(0, 40, (5, 7)).astype(np.int32)
+            grads = r.standard_normal((5, 7, 8)).astype(np.float32)
+            rows = [t.pull(ids) for t in tables]
+            assert rows[1].device.type == "cuda"
+            assert torch.equal(rows[0], rows[1].cpu())
+            for t in tables:
+                t.push(ids, torch.from_numpy(grads).to(t.device), lr=0.1,
+                       dedup=bool(step % 2))
+            if step == 1:
+                for t in tables:
+                    t.install_hot_rows(np.arange(12))
+        assert tables[1].hot_pulls == 4
+        assert bk.embedding_bag_cuda.launches == n + 4
+        assert torch.equal(tables[0].to_dense(), tables[1].to_dense())
+        assert torch.equal(tables[0].hot_rows, tables[1].hot_rows.cpu())
+    finally:
+        for t in tables:
+            t.close()
+
+
+@pytest.mark.parametrize("mode", ["sync", "async"])
+def test_ctr_training_on_the_card_equals_the_plain_gather(cuda, mode):
+    """A short CTR run on the card through the kernel and through the
+    plain gather: the same losses bit for bit in sync mode (the push is
+    deterministic), the kernel launched once per pull that found the
+    cache; the tower and the cache on the card."""
+    from repro_torch.ps import CTRConfig, make_table, train_ctr_ps
+
+    cfg = CTRConfig(vocab=2000, emb_dim=8, slots=6, tower=(32,), batch=64,
+                    lr=0.1)
+    out = {}
+    for impl in ("auto", "ref"):
+        table = make_table(cfg, 3, device=cuda, impl=impl)
+        n = bk.embedding_bag_cuda.launches
+        try:
+            out[impl] = train_ctr_ps(cfg, steps=25, mode=mode,
+                                     repin_interval=10, table=table)
+        finally:
+            table.close()
+        launched = bk.embedding_bag_cuda.launches - n
+        assert launched == (out[impl]["hot_pulls"] if impl == "auto" else 0)
+    s = out["auto"]
+    assert s["repins"] == 2 and s["hot_pulls"] > 0
+    assert s["devices"] == {"tower": ["cuda:0"], "hot_cache": "cuda:0"}
+    if mode == "sync":
+        assert s["losses"] == out["ref"]["losses"]
