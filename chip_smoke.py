@@ -11,21 +11,24 @@ result lines:
 2. build   — builds the CUDA kernels of the serve and train paths
              (``src/repro_torch/kernels/csrc/*.cu``), one nvcc each, all
              started together;
-3. kernels — each kernel against its plain PyTorch version on the card:
-             paged decode at the test shapes and the llama3.2-1b and
-             olmoe-1b-7b decode shapes, float32 (atol 2e-5) and bfloat16
-             (atol 2e-2); MoE dispatch and combine at the reference test
-             sweep, olmoe-1b-7b's decode and prefill shapes and with
-             out-of-range indices, float32 (atol 1e-5) and bfloat16
-             (atol 5e-2); the MoE autograd Functions' dx / dbuf / dw
-             against autograd of the slot versions at olmoe's prefill
-             shape (atol 1e-5, dw 1e-4); flash attention forward at the
-             reference sweep and partial tiles (float32 atol 2e-5,
-             bfloat16 2e-2) and its dq / dk / dv against autograd of the
-             plain version (float32 atol 1e-4 rtol 1e-4, bfloat16 atol
-             5e-2 rtol 1.6e-2); embedding bag at the reference sweep, the
-             CTR pulls, duplicate and out-of-range ids (float32 atol 1e-5,
-             bfloat16 5e-2, a bag of one bit-equal to a gather);
+3. kernels — each kernel against its plain PyTorch version on the card: paged
+             decode at the test shapes, the llama3.2-1b and olmoe-1b-7b decode
+             shapes and sequences split over KV pages (across split boundaries,
+             ending in the first split, a window starting mid-split, a table
+             width that does not divide into the splits), float32 (atol 2e-5)
+             and bfloat16 (atol 2e-2), each case bit-equal over two calls; MoE
+             dispatch and combine at the reference test sweep, olmoe-1b-7b's
+             decode and prefill shapes and with out-of-range indices, float32
+             (atol 1e-5) and bfloat16 (atol 5e-2); the MoE autograd Functions'
+             dx / dbuf / dw against autograd of the slot versions at olmoe's
+             prefill shape (atol 1e-5, dw 1e-4); flash attention forward at the
+             reference sweep and partial tiles (float32 atol 2e-5, bfloat16
+             2e-2) and its dq / dk / dv against autograd of the plain version
+             (float32 atol 1e-4 rtol 1e-4 and max|err| 2e-5, bfloat16 atol 5e-2
+             rtol 1.6e-2), the backward bit-equal over two runs; embedding bag
+             at the reference sweep, the CTR pulls, duplicate and out-of-range
+             ids (float32 atol 1e-5, bfloat16 5e-2, a bag of one bit-equal to a
+             gather);
 4. serve   — ``serve_continuous`` of llama3.2-1b at full width (16
              layers, d_model 2048, random weights from a seed, float32) on
              a mix of prompts of 64-512 tokens, counting kernel launches
@@ -64,7 +67,10 @@ result lines:
              profiled window of sync steps (device idle share);
 11. timing — each kernel at its main path's shapes beside its bound, its
              plain version and, where one exists, a library call (CUDA
-             events, median of repeats, L2 flushed or exceeded).
+             events, median of repeats, L2 flushed or exceeded); paged
+             decode also in bfloat16 and at the llama serve shape; the
+             float32 flash bounds at both the CUDA-core and the 3xTF32
+             tensor-core rate (the lower time is the bound).
 
 It then prints one ``{"kernels": [...]}`` JSON line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Imports neither jax nor the JAX
@@ -87,6 +93,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 F32_FLOPS = 67e12                # H100 SXM float32 outside the tensor cores
+TF32X3_FLOPS = 495e12 / 3        # f32-accurate products as 3 TF32 products
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 MOE_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 BF16_TC_FLOPS = 989e12           # H100 SXM dense bfloat16 tensor cores
@@ -153,7 +160,41 @@ def kernel_cases():
                   50.0, [127, 70], ()))
     cases.append(("olmoe B4 KV16 G1 hd128", 4, 16, 1, 128, 16, 35, None,
                   None, [543, 300, 77, 0], (3,)))
+    # the split over KV pages (B2 KV2 on P 40 or 37: 10 splits of 4 pages;
+    # SPLIT_CASES says what each must show)
+    cases.append(("splits: sequences across split boundaries", 2, 2, 4, 64,
+                  16, 40, None, None, [639, 300], ()))
+    cases.append(("splits: q_pos ends in the first split", 2, 2, 4, 64, 16,
+                  40, None, None, [20, 63], ()))
+    cases.append(("splits: window starts mid-split", 2, 2, 4, 64, 16, 40, 90,
+                  None, [500, 300], ()))
+    cases.append(("splits: P 37 does not divide into the splits", 2, 2, 4,
+                  64, 16, 37, 50, 30.0, [591, 100], ()))
     return cases
+
+
+def check_split_cases(torch, pk):
+    """Each ``splits:`` case of kernel_cases() shows what its label says,
+    under the split count the wrapper picks on this card."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, B, KV, G, hd, ps, P, w, sc, pos, _ in kernel_cases():
+        if not label.startswith("splits:"):
+            continue
+        splits, pps = pk.decode_splits(B, KV, P, sms)
+        check(splits > 1, f"{label}: one split on {sms} SMs")
+        last = [p // ps for p in pos]                  # last live page
+        first = [max(p - w + 1, 0) // ps if w else 0 for p in pos]
+        if "across" in label:
+            ok = all(lp // pps > 0 for lp in last)
+        elif "first split" in label:
+            ok = all(lp < pps for lp in last)
+        elif "window" in label:
+            ok = all(fp % pps != 0 for fp in first)
+        else:
+            ok = P % pps != 0
+        check(ok, f"{label}: not shown with {splits} splits of {pps} pages "
+              f"(q_pos {pos}, window {w})")
+        say("kernels", f"{label}: {splits} splits of {pps} pages")
 
 
 def phase_kernels(torch, pk):
@@ -166,9 +207,13 @@ def phase_kernels(torch, pk):
                 dtype=dtype, seed=len(label), scratch_rows=scr)
             got = pk.paged_decode_cuda(q, kp, vp, table, qp, window=w,
                                        softcap=sc)
+            again = pk.paged_decode_cuda(q, kp, vp, table, qp, window=w,
+                                         softcap=sc)
             want = pk.paged_decode_gather(q, kp, vp, table, qp, window=w,
                                           softcap=sc)
             torch.cuda.synchronize()
+            check(torch.equal(got, again),
+                  f"{label} {dname}: two calls are not bit-equal")
             check(bool(torch.isfinite(got.float()).all()),
                   f"{label} {dname}: non-finite output")
             err = (got.float() - want.float()).abs().max().item()
@@ -178,7 +223,9 @@ def phase_kernels(torch, pk):
                   f"{TOL[dname]:.0e}")
         say("kernels", f"paged_decode ok: {label}")
     say("kernels", f"paged_decode max|err| float32 {worst['float32']:.3e} "
-        f"(atol 2e-5), bfloat16 {worst['bfloat16']:.3e} (atol 2e-2)")
+        f"(atol 2e-5), bfloat16 {worst['bfloat16']:.3e} (atol 2e-2); every "
+        "case bit-equal over two calls")
+    check_split_cases(torch, pk)
     return worst
 
 
@@ -370,12 +417,64 @@ FLASH_CASES = [
 ]
 
 
+def flash_bwd_bf16_rounded(torch, fk, q, k, v, o, do, causal, window,
+                           softcap):
+    """Autograd's backward of ``flash_attention_ref`` written out in float32
+    with the roundings the bfloat16 kernel makes: D = sum(dO * o) from the
+    bfloat16 output, and p and dS rounded to bfloat16 before the products
+    they feed (dV = pᵀ dO, dK = dSᵀ q, dQ = dS k).  Returns dq, dk, dv."""
+    def bf(t):
+        return t.to(torch.bfloat16).float()
+
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    Sq, Sk, hd = q.shape[2], k.shape[2], q.shape[3]
+    scale = hd ** -0.5
+    s = qf @ kf.transpose(-1, -2) * scale
+    if softcap is not None:
+        th = torch.tanh(s / softcap)
+        s = softcap * th
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    ok = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        ok = ok & (qpos >= kpos)
+    if window is not None:
+        ok = ok & ((qpos - kpos) < window)
+    p = torch.softmax(torch.where(ok, s, fk.NEG_INF), dim=-1)
+    ds = p * (dof @ vf.transpose(-1, -2)
+              - (dof * o.float()).sum(-1, keepdim=True))
+    if softcap is not None:
+        ds = ds * (1 - th * th)
+    p, ds = bf(p), bf(torch.where(ok, ds, 0.0))
+    return (ds @ kf * scale, ds.transpose(-1, -2) @ qf * scale,
+            p.transpose(-1, -2) @ dof)
+
+
+def worst_gap(torch, a, b):
+    """The largest |a - b|, |b| there, and that gap in bfloat16 ulps of b
+    (|b| in [2^(e-1), 2^e) has ulp 2^(e-8))."""
+    gap = (a - b).abs().flatten()
+    i = int(gap.argmax())
+    ref = b.flatten()[i]
+    ulp = 2.0 ** (int(torch.frexp(ref).exponent) - 8)
+    return gap[i].item(), ref.abs().item(), gap[i].item() / ulp
+
+
 def phase_flash_kernels(torch, fk):
     """The flash forward against ``flash_attention_ref`` and the backward
     (dK/dV pass, then dQ pass) against autograd of it, on the same inputs.
-    Returns each entry point's worst error per dtype."""
+    For bfloat16 it also measures where the backward's worst gap lies: its
+    size in ulps of the reference value, and the gap that the reference
+    itself shows once it makes the kernel's roundings
+    (``flash_bwd_bf16_rounded``).  Returns each entry point's worst error
+    per dtype."""
     worst = {n: {"float32": 0.0, "bfloat16": 0.0}
              for n in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")}
+    #: bfloat16: (gap, |ref|, ulps, case) of the kernel and of the rounded
+    #: plain backward against autograd, and the worst kernel-vs-rounded gap
+    bf16_gap = {"kernel vs autograd": (0.0,),
+                "rounded plain vs autograd": (0.0,),
+                "kernel vs rounded plain": (0.0,)}
     for label, B, H, Sq, Sk, hd, causal, window, cap in FLASH_CASES:
         kw = {"causal": causal, "window": window, "softcap": cap}
         for dname in ("float32", "bfloat16"):
@@ -398,6 +497,14 @@ def phase_flash_kernels(torch, fk):
                   f"max|kernel-plain| {err:.3e} > {FLASH_TOL[dname]:.0e}")
             dk, dv, delta = fk.flash_bwd_dkdv_cuda(q, k, v, o, lse, do, **kw)
             dq = fk.flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
+            dk2, dv2, delta2 = fk.flash_bwd_dkdv_cuda(q, k, v, o, lse, do,
+                                                      **kw)
+            dq2 = fk.flash_bwd_dq_cuda(q, k, v, do, lse, delta2, **kw)
+            check(all(torch.equal(a, b) for a, b in (
+                (dk, dk2), (dv, dv2), (delta, delta2), (dq, dq2))),
+                f"flash {label} {dname}: two backward runs are not "
+                "bit-equal")
+            del dk2, dv2, delta2, dq2
             qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
             ref = torch.autograd.grad(fk.flash_attention_ref(*qkv, **kw),
                                       qkv, do)
@@ -413,12 +520,35 @@ def phase_flash_kernels(torch, fk):
                       f" off by {bad.max().item() + atol:.3e} beyond atol "
                       f"{atol:.0e} rtol {rtol:.1e}")
                 entry = "flash_bwd_dq" if name == "dq" else "flash_bwd_dkdv"
-                worst[entry][dname] = max(worst[entry][dname],
-                                          (a - b).abs().max().item())
-        say("kernels", f"flash forward + backward ok: {label}")
+                err = (a - b).abs().max().item()
+                worst[entry][dname] = max(worst[entry][dname], err)
+                # 3xTF32 keeps float32 accuracy: the forward's bound holds
+                check(dname != "float32" or err <= FLASH_TOL[dname],
+                      f"flash {label} float32: {name} max|err| {err:.3e} > "
+                      f"{FLASH_TOL[dname]:.0e}")
+            if dname == "bfloat16":
+                rounded = flash_bwd_bf16_rounded(torch, fk, q, k, v, o, do,
+                                                 causal, window, cap)
+                for name, a, r, b in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                         rounded, ref):
+                    a, b = a.float(), b.float()
+                    r = r.to(torch.bfloat16).float()
+                    for key, x, y in (("kernel vs autograd", a, b),
+                                      ("rounded plain vs autograd", r, b),
+                                      ("kernel vs rounded plain", a, r)):
+                        gap = worst_gap(torch, x, y) + (f"{label} {name}",)
+                        if gap[0] > bf16_gap[key][0]:
+                            bf16_gap[key] = gap
+                del rounded
+            del ref, qkv
+        say("kernels", f"flash forward + backward ok (backward bit-equal "
+            f"over two runs): {label}")
     for name, err in worst.items():
         say("kernels", f"{name} max|err| float32 {err['float32']:.3e}, "
             f"bfloat16 {err['bfloat16']:.3e}")
+    for key, (gap, ref, ulps, where) in bf16_gap.items():
+        say("kernels", f"flash backward bfloat16 worst gap, {key}: {gap:.4e}"
+            f" at |ref| {ref:.4e} = {ulps:.2f} ulp ({where})")
     return worst
 
 
@@ -1068,10 +1198,18 @@ def phase_ctr(torch, bk):
 # --------------------------------------------------------------------------
 
 
+#: cycles of the spin kernel that keeps the card busy while the host
+#: enqueues timed calls (~23 ms at the H100's 1.755 GHz boost clock)
+SPIN_CYCLES = 40_000_000
+
+
 def time_ms(torch, fn, inputs, reps: int = 5, iters: int = 40) -> float:
     """Median over ``reps`` of the mean time of ``iters`` calls, rotating
     over ``inputs`` (sets of arguments larger together than the 50 MB L2,
-    so each call reads its K/V from device memory as a decode step does)."""
+    so each call reads its K/V from device memory as a decode step does).
+    A spin kernel (``torch.cuda._sleep``) holds the card while the host
+    enqueues the calls, so the events time the card's work and not the
+    host's launch overhead (the profile phases hold the host's share)."""
     for args in inputs:
         fn(*args)
     torch.cuda.synchronize()
@@ -1079,6 +1217,7 @@ def time_ms(torch, fn, inputs, reps: int = 5, iters: int = 40) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         for i in range(iters):
             fn(*inputs[i % len(inputs)])
@@ -1088,13 +1227,16 @@ def time_ms(torch, fn, inputs, reps: int = 5, iters: int = 40) -> float:
     return statistics.median(times)
 
 
-def phase_timing(torch, pk):
+def paged_timing(torch, pk, *, B, KV, G, hd, ps, P, pos, dtype):
+    """paged_decode at one shape beside its bound, the plain version and
+    SDPA over the gathered, GQA-expanded K/V, rotating over enough input
+    sets to exceed the 50 MB L2 three times."""
     F = torch.nn.functional
-    B, KV, G, hd, ps, P = 8, 8, 4, 64, 16, 128
-    pos = [2047, 1500, 1023, 700, 333, 64, 15, 0]
+    el = torch.finfo(dtype).bits // 8
+    set_bytes = 2 * (1 + B * P) * ps * KV * hd * el
     sets = [paged_inputs(torch, B=B, KV=KV, G=G, hd=hd, ps=ps, P=P,
-                         q_pos=pos, dtype=torch.float32, seed=100 + i)
-            for i in range(4)]
+                         q_pos=pos, dtype=dtype, seed=100 + i)
+            for i in range(max(4, math.ceil(150e6 / set_bytes)))]
     kern = time_ms(torch, lambda *a: pk.paged_decode_cuda(*a), sets)
     plain = time_ms(torch, lambda *a: pk.paged_decode_gather(*a), sets)
 
@@ -1109,19 +1251,19 @@ def phase_timing(torch, pk):
         return (q.reshape(B, KV * G, 1, hd), k.contiguous(), v.contiguous(),
                 mask[:, None, None, :])
 
-    lib_sets = [gathered(*s) for s in sets[:2]]
+    lib_sets = [gathered(*s) for s in sets[:max(2, len(sets) // 2)]]
     lib = time_ms(torch, lambda q, k, v, m: F.scaled_dot_product_attention(
         q, k, v, attn_mask=m), lib_sets)
     o_lib = F.scaled_dot_product_attention(*lib_sets[0][:3],
                                            attn_mask=lib_sets[0][3])
     ref = pk.paged_decode_gather(*sets[0]).reshape(B, KV * G, 1, hd)
-    check((o_lib - ref).abs().max().item() <= 1e-3,
+    tol = 1e-3 if dtype == torch.float32 else TOL["bfloat16"]
+    check((o_lib.float() - ref.float()).abs().max().item() <= tol,
           "library yardstick disagrees with the gather")
 
     # the least time for this work: the K/V rows at positions 0..q_pos
     # (no window here), the live page-table entries, q, out and q_pos once
     # over the memory rate, or the flops over the f32 rate
-    el = 4
     rows = sum(min(p, P * ps - 1) + 1 for p in pos)
     live_pages = sum(min(p // ps, P - 1) + 1 for p in pos)
     nbytes = (2 * rows * KV * hd * el + 2 * B * KV * G * hd * el
@@ -1130,12 +1272,34 @@ def phase_timing(torch, pk):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
     bound = max(t_bytes, t_ops)
     by = "bytes" if t_bytes >= t_ops else "operations"
-    say("timing", f"paged_decode at B{B} KV{KV} G{G} hd{hd} ps{ps} float32, "
-        f"q_pos up to 2047: kernel {kern:.4f} ms, bound {bound:.4f} ms "
-        f"({by}: {nbytes} bytes), gather {plain:.4f} ms, "
+    splits, pps = pk.decode_splits(
+        B, KV, P, torch.cuda.get_device_properties(0).multi_processor_count)
+    shape = (f"B{B} KV{KV} G{G} hd{hd} ps{ps} P{P} {str(dtype)[6:]}, q_pos "
+             f"{min(pos)}-{max(pos)}, {splits} splits of {pps} pages")
+    say("timing", f"paged_decode at {shape}: kernel {kern:.4f} ms, bound "
+        f"{bound:.4f} ms ({by}: {nbytes} bytes), gather {plain:.4f} ms, "
         f"sdpa on gathered K/V {lib:.4f} ms")
+    del sets, lib_sets
+    torch.cuda.empty_cache()
     return {"ms": kern, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-            "library_ms": lib}
+            "library_ms": lib, "shape": shape}
+
+
+def phase_timing(torch, pk):
+    """paged_decode at the llama decode shape with KV lengths up to 2047
+    (float32, the kernel line's numbers; and bfloat16), and at the llama
+    serve phase's shape (4 slots, 35-page tables, KV lengths 77-512)."""
+    res = paged_timing(torch, pk, B=8, KV=8, G=4, hd=64, ps=16, P=128,
+                       pos=[2047, 1500, 1023, 700, 333, 64, 15, 0],
+                       dtype=torch.float32)
+    res["bfloat16"] = paged_timing(
+        torch, pk, B=8, KV=8, G=4, hd=64, ps=16, P=128,
+        pos=[2047, 1500, 1023, 700, 333, 64, 15, 0], dtype=torch.bfloat16)
+    res["shape"] = "llama3.2-1b decode, " + res["shape"]
+    res["llama_serve"] = paged_timing(
+        torch, pk, B=4, KV=8, G=4, hd=64, ps=16, P=35,
+        pos=[76, 200, 350, 511], dtype=torch.float32)
+    return res
 
 
 def time_cold_ms(torch, fn, args, flush, reps: int = 30) -> float:
@@ -1249,13 +1413,16 @@ def phase_flash_timing(torch, fk):
     head): each product (QKᵀ, PV, dO Vᵀ, dV, dK, dQ) is 2·hd flops a
     visible pair; the forward does 2 of them (2·B·H·S²·hd), the dK/dV pass
     4 (S, dP, dV, dK), the dQ pass 3 (S, dP, dQ); the backward as a whole
-    needs 5 (2.5 x the forward).  Rates: 67 TFLOP/s float32 (CUDA cores),
-    989 TFLOP/s bfloat16 (dense tensor cores), 3.35 TB/s."""
+    needs 5 (2.5 x the forward).  Rates: bfloat16 989 TFLOP/s (dense
+    tensor cores); float32 at both 67 TFLOP/s (CUDA cores) and 495/3
+    TFLOP/s (f32-accurate products as three TF32 tensor-core products, as
+    the backward runs them), the lower time being the bound and the
+    timing line giving both; 3.35 TB/s."""
     F = torch.nn.functional
     B, H, S, hd = 4, 32, 2048, 64
     BH, pairs = B * H, S * (S + 1) // 2
     res = {}
-    for dname, peak in (("float32", F32_FLOPS), ("bfloat16", BF16_TC_FLOPS)):
+    for dname in ("float32", "bfloat16"):
         dt = getattr(torch, dname)
         el = torch.finfo(dt).bits // 8
         g = torch.Generator(device="cuda")
@@ -1308,6 +1475,8 @@ def phase_flash_timing(torch, fk):
         }
         del out, lib_out, qkv
         for name, (flops, nbytes) in work.items():
+            # float32: 3xTF32 is the faster of the two rates
+            peak = TF32X3_FLOPS if dname == "float32" else BF16_TC_FLOPS
             t_ops = flops / peak * 1e3
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             res.setdefault(name, {})[dname] = {
@@ -1315,11 +1484,14 @@ def phase_flash_timing(torch, fk):
                 "bound_ms": max(t_ops, t_bytes),
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "library_ms": lib[name], "flops": flops, "bytes": nbytes}
+            rate = (f"{peak / 1e12:.0f} TFLOP/s"
+                    + (f"; {flops / F32_FLOPS * 1e3:.4f} ms at the CUDA "
+                       "cores' 67" if dname == "float32" else ""))
             sdpa = "none" if lib[name] is None else f"{lib[name]:.4f} ms"
             say("timing", f"{name} at B{B} H{H} S{S} hd{hd} causal {dname}: "
                 f"kernel {kern[name]:.4f} ms, bound "
-                f"{max(t_ops, t_bytes):.4f} ms ({flops} flops, {nbytes} "
-                f"bytes), plain {plain[name]:.4f} ms, sdpa {sdpa}")
+                f"{max(t_ops, t_bytes):.4f} ms ({flops} flops at {rate}, "
+                f"{nbytes} bytes), plain {plain[name]:.4f} ms, sdpa {sdpa}")
         del q, k, v, do, o, lse, delta
         torch.cuda.empty_cache()
     return res
@@ -1472,7 +1644,6 @@ def main() -> int:
         "launches_by_path": by_path["paged_decode"],
         "max_abs_err": worst["float32"],
         "max_abs_err_bf16": worst["bfloat16"], **timing,
-        "shape": "llama3.2-1b decode, B8 KV8 G4 hd64, q_pos up to 2047",
     }]
     TIMED = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for kname, line in (("moe_dispatch", 119), ("moe_combine", 170)):

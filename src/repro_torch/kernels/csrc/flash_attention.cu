@@ -26,8 +26,8 @@
 // Rows and keys past Sq / Sk (the last, partial tile) do not exist: their
 // loads read zeros and their weights are exactly 0.
 //
-// Backward, deterministic (no atomics; every output element is summed by one
-// thread, in a fixed order):
+// Backward, two deterministic passes (no atomics; every output element is
+// accumulated by one thread's tensor-core fragments, in a fixed order):
 //   flash_bwd_dkdv: D[r] = sum_d dO[r, d] * o[r, d]   (one warp per row)
 //                   then one block per key tile loops over the query tiles
 //                   that see it: p = exp(s - lse), dP = dO v^T,
@@ -36,28 +36,54 @@
 //   flash_bwd_dq:   one block per query tile loops over its key tiles:
 //                   dQ += scale * dS k.
 //
-// What bounds it: operations.  A causal forward does 2*B*H*S^2*hd flops on
-// 4 * B*H*S*hd elements; at S = 2048 that is ~1000 flops per byte, far
-// above the card's balance.  This first version runs the products on the
-// CUDA cores in f32 (also for bfloat16 inputs, which are widened on load),
-// so its ceiling is the f32 rate, not the tensor cores'.
+// What bounds it: operations.  The backward needs 5 products of 2*hd flops
+// per visible (query, key) pair (the two passes run 7: the dQ pass scores
+// S and dP again) on 4 * B*H*S*hd elements a tensor; at
+// S = 2048 that is thousands of flops per byte, far above the card's
+// balance, so the least time is the flops over the tensor cores' rate:
+// 989 TFLOP/s in bf16, and 495/3 TFLOP/s for f32-accurate products in the
+// 3xTF32 split below (the f32 CUDA cores give only 67).
 //
-// Design (correct first):
-//  * the TPU grid (B*H, q blocks, kv blocks) with the kv axis sequential
-//    becomes one block of 256 threads per (q tile, bh) that loops over its
-//    key tiles (forward, dQ), or per (key tile, bh) that loops over its query
-//    tiles (dK/dV); the running max m, sum l and the accumulators live in
-//    registers;
-//  * tiles of 64 rows (32 at hd 256) are staged in shared memory as f32,
-//    rows padded to hd + 4 floats so that the 16-byte reads of 8
-//    consecutive rows hit distinct banks;
-//  * a thread (ty, tx) of the 16 x 16 layout owns the score-tile entries
-//    (ty + 16 i, tx + 16 j) and the output entries (ty + 16 i, 4 tx + 64 c
-//    .. +3), so the row statistics of its rows stay in its registers and
-//    are reduced over the 16 lanes of a half-warp with shuffles;
-//  * causal query tiles are scheduled heaviest first.
-// Tensor cores (wgmma), TMA staging and GQA without expanded heads are
-// later work.
+// Design of the backward:
+//  * every product runs on the tensor cores through per-warp `mma.sync`
+//    fragments: m16n8k16 bf16 with f32 accumulators; for f32 inputs
+//    m16n8k8 TF32 in the 3xTF32 split (x = hi + lo, hi = x rounded to
+//    TF32, lo = x - hi, of which the tensor cores read TF32's bits;
+//    acc += lo*hi + hi*lo + hi*hi), which keeps f32-level accuracy;
+//  * a block owns ROWS = 16 * WM rows (keys in the dK/dV pass, queries in
+//    the dQ pass) and streams tiles of the other side; warp (wm, wn) owns 16
+//    of the rows and HD / WN output columns (WN > 1 at hd 128 and 256, where
+//    one warp's accumulators for the whole head would not fit in registers;
+//    those warps repeat the two score products of their rows);
+//  * the score fragments (S and dP) stay in registers, and so do p and dS:
+//    the accumulator layout of a score tile is the A-operand layout of the
+//    next product (bf16: two n-tiles make one k16 step; TF32: one n-tile
+//    is one k8 step whose k order is permuted, 2t -> t and 2t+1 -> t+4,
+//    and the B operand is read in the same order), so neither reaches
+//    shared or device memory.  bf16 takes a tile in two halves of its
+//    columns, each scored, packed to bf16 and accumulated before the
+//    next, so fewer registers are live and more blocks fit an SM;
+//  * elements of a tile that is wholly visible (no mask, no soft cap, no
+//    missing row or key) take a short path: p = 2^(s * scale * log2(e) -
+//    lse * log2(e)) in one ex2.approx, dS = p (dP - D);
+//  * f32 operands are split by integer ops on the bits, not by
+//    cvt.rna.tf32 (a slow conversion);
+//  * tiles are staged in shared memory in their own type, rows padded by
+//    16 bytes so that `ldmatrix` (bf16) and the 32-bit fragment loads (f32)
+//    hit distinct banks; the streamed tiles (q, dO, lse and D in the dK/dV
+//    pass; k and v in the dQ pass) are double-buffered with `cp.async`, so
+//    the next tile's load overlaps the current tile's products;
+//  * causal tiles are scheduled heaviest first across all heads: the grid
+//    is (B*H, tiles), so every head's heaviest tile (key tile 0 of the
+//    dK/dV pass, the last query tile of the dQ pass) starts in the first
+//    wave and none is left for the tail.
+//
+// The forward still runs its products on the CUDA cores in f32 (bf16 inputs
+// widened on load): a 16 x 16 thread layout over f32 tiles of 64 rows (32
+// at hd 256), rows padded to hd + 4 floats, the row statistics reduced
+// over half-warps with shuffles.  Moving it onto the tensor cores with the
+// backward's fragments, `wgmma` with a TMA producer warp, and GQA without
+// expanded heads are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,6 +93,7 @@
 namespace {
 
 constexpr float kMasked = -1e30f;  // the TPU kernel's NEG_INF
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kThreads = 256;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -333,182 +360,643 @@ __device__ __forceinline__ void grad_entry(float x, float dp, float lse_r,
   }
 }
 
-// One block per (key tile, bh): dK and dV of BN keys, looping over the
+// --------------------------------------------- backward: tensor-core tiles
+
+// Per head dim: WM x WN warps; a block owns ROWS = 16 * WM rows and streams
+// tiles of COLS = ROWS rows; warp (wm, wn) owns rows 16 wm .. 16 wm + 15 and
+// output columns DW wn .. DW wn + DW - 1.  Shared memory holds six (COLS,
+// HD) tiles: the block's own two and two stages of the two streamed ones.
+template <typename T, int HD>
+struct Bwd {
+  static constexpr int WM = HD >= 256 ? 2 : 4;
+  static constexpr int WN = HD / 64;
+  static constexpr int THREADS = 32 * WM * WN;
+  static constexpr int ROWS = 16 * WM;
+  static constexpr int COLS = ROWS;
+  static constexpr int NT = COLS / 8;         // score n-tiles of a warp
+  static constexpr int DW = HD / WN;
+  static constexpr int DT = DW / 8;           // output n-tiles of a warp
+  static constexpr int RS = HD + 16 / (int)sizeof(T);  // padded row stride
+  static constexpr int TILE = COLS * RS;      // elements of one tile
+  static constexpr size_t SMEM =
+      6 * TILE * sizeof(T) + 4 * COLS * sizeof(float);
+  // blocks an SM should hold (registers are capped to fit them); bf16 at
+  // hd 64 has the shared memory for 3 dK/dV or 4 dQ blocks
+  static constexpr bool SMALL = sizeof(T) == 2 && HD == 64;
+  static constexpr int DKDV_BLOCKS = SMALL ? 3 : 1;
+  static constexpr int DQ_BLOCKS = SMALL ? 4 : 1;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(pred ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Rows [row0, row0 + COLS) of a (S, HD) matrix into a (COLS, RS) tile in
+// 16-byte copies; rows past S are zero-filled.
+template <typename T, int HD>
+__device__ __forceinline__ void async_tile(T* dst, const T* __restrict__ src,
+                                           int row0, int S) {
+  using C = Bwd<T, HD>;
+  constexpr int EPC = 16 / sizeof(T), CH = HD / EPC;
+  for (int i = threadIdx.x; i < C::COLS * CH; i += C::THREADS) {
+    const int r = i / CH, c = i - r * CH, g = row0 + r;
+    const bool ok = g < S;
+    cp_async16(dst + r * C::RS + c * EPC,
+               src + (long long)(ok ? g : 0) * HD + c * EPC, ok);
+  }
+}
+// Entries [row0, row0 + n) of a float row vector; past S read zeros.
+__device__ __forceinline__ void async_row(float* dst,
+                                          const float* __restrict__ src,
+                                          int row0, int n, int S, int nthr) {
+  for (int i = threadIdx.x; i < n; i += nthr) {
+    const bool ok = row0 + i < S;
+    cp_async4(dst + i, src + (ok ? row0 + i : 0), ok);
+  }
+}
+
+// x = hi + lo: hi is x rounded to TF32's 10 mantissa bits (to nearest, by
+// integer ops on the bits: cheaper than cvt.rna.tf32), lo = x - hi exactly;
+// the tensor cores read only lo's top 19 bits, so the pair keeps ~21 bits.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+// The double-buffered ring of streamed tiles: tile i goes to buffer i % 2,
+// one cp.async group per tile.  ring_start loads tile 0; ring_next, before
+// tile i's products, starts tile i + 1's load and waits for tile i;
+// ring_done, after them, holds the buffer until every warp is done with it.
+template <typename F>
+__device__ __forceinline__ void ring_start(int n, F&& stage) {
+  if (n > 0) stage(0);
+  cp_async_commit();
+}
+template <typename F>
+__device__ __forceinline__ void ring_next(int i, int n, F&& stage) {
+  if (i + 1 < n) {
+    stage(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+  } else {
+    cp_async_wait<0>();
+  }
+  __syncthreads();
+}
+__device__ __forceinline__ void ring_done() { __syncthreads(); }
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// acc += a b in the 3xTF32 split, small terms first
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4],
+                                     const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+  mma_tf32(c, al, bh[0], bh[1]);
+  mma_tf32(c, ah, bl[0], bl[1]);
+  mma_tf32(c, ah, bh[0], bh[1]);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+// s += A1 B1^T and dp += A2 B2^T over d in [k_begin, k_end), f32 in the
+// 3xTF32 split (the layout of warp_scores).
+template <int RS, int NT>
+__device__ __forceinline__ void tf32_scores(const float* A1, const float* B1,
+                                            const float* A2, const float* B2,
+                                            int k_begin, int k_end, int lane,
+                                            float (&s)[NT][4],
+                                            float (&dp)[NT][4]) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll 2
+  for (int k0 = k_begin; k0 < k_end; k0 += 8) {
+    uint32_t a1h[4], a1l[4], a2h[4], a2l[4];
+    const float* p1 = A1 + g * RS + k0 + t;
+    const float* p2 = A2 + g * RS + k0 + t;
+    split(p1[0], a1h[0], a1l[0]);
+    split(p1[8 * RS], a1h[1], a1l[1]);
+    split(p1[4], a1h[2], a1l[2]);
+    split(p1[8 * RS + 4], a1h[3], a1l[3]);
+    split(p2[0], a2h[0], a2l[0]);
+    split(p2[8 * RS], a2h[1], a2l[1]);
+    split(p2[4], a2h[2], a2l[2]);
+    split(p2[8 * RS + 4], a2h[3], a2l[3]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      uint32_t bh[2], bl[2];
+      const float* q1 = B1 + (8 * j + g) * RS + k0 + t;
+      split(q1[0], bh[0], bl[0]);
+      split(q1[4], bh[1], bl[1]);
+      mma3(s[j], a1h, a1l, bh, bl);
+      const float* q2 = B2 + (8 * j + g) * RS + k0 + t;
+      split(q2[0], bh[0], bl[0]);
+      split(q2[4], bh[1], bl[1]);
+      mma3(dp[j], a2h, a2l, bh, bl);
+    }
+  }
+}
+
+// s = A1 B1^T and dp = A2 B2^T for one warp: A1, A2 point at the warp's 16
+// rows, B1, B2 at the COLS streamed rows, all (rows, HD) tiles of row
+// stride RS; the sum runs over HD.  Fragment layout (g = lane / 4,
+// t = lane % 4): s[j][e] is row g + 8 (e / 2), column 8 j + 2 t + e % 2.
+template <typename T, int HD, int RS, int NT>
+__device__ __forceinline__ void warp_scores(const T* A1, const T* B1,
+                                            const T* A2, const T* B2,
+                                            int lane, float (&s)[NT][4],
+                                            float (&dp)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+  if constexpr (sizeof(T) == 4) {
+    if constexpr (HD <= 128) {
+      tf32_scores<RS, NT>(A1, B1, A2, B2, 0, HD, lane, s, dp);
+    } else {
+      // 64-wide chunks of d, each summed in fresh accumulators and added
+      // with one rounded add (see warp_accum_tf32)
+#pragma unroll 1
+      for (int c0 = 0; c0 < HD; c0 += 64) {
+        float cs[NT][4], cdp[NT][4];
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) cs[j][e] = cdp[j][e] = 0.f;
+        tf32_scores<RS, NT>(A1, B1, A2, B2, c0, c0 + 64, lane, cs, cdp);
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[j][e] += cs[j][e];
+            dp[j][e] += cdp[j][e];
+          }
+      }
+    }
+  } else {
+    const int ar = lane & 15, ac = (lane >> 4) * 8;
+    const int mi = lane >> 3;
+    const int br = (lane & 7) + ((mi >> 1) << 3), bc = (mi & 1) * 8;
+#pragma unroll
+    for (int k0 = 0; k0 < HD; k0 += 16) {
+      uint32_t a1[4], a2[4];
+      ldsm_x4(a1, A1 + ar * RS + k0 + ac);
+      ldsm_x4(a2, A2 + ar * RS + k0 + ac);
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        uint32_t b[4];
+        ldsm_x4(b, B1 + (8 * j + br) * RS + k0 + bc);
+        mma_bf16(s[j], a1, b[0], b[1]);
+        mma_bf16(s[j + 1], a1, b[2], b[3]);
+        ldsm_x4(b, B2 + (8 * j + br) * RS + k0 + bc);
+        mma_bf16(dp[j], a2, b[0], b[1]);
+        mma_bf16(dp[j + 1], a2, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// The bf16 A operand of warp_accum_bf16 from a score tile in the fragment
+// layout of warp_scores: n-tiles 2 kk and 2 kk + 1 make k16 step kk.
+template <int NT>
+__device__ __forceinline__ void pack_a(const float (&w)[NT][4],
+                                       uint32_t (*a)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < NT / 2; ++kk) {
+    a[kk][0] = pack_bf16(w[2 * kk][0], w[2 * kk][1]);
+    a[kk][1] = pack_bf16(w[2 * kk][2], w[2 * kk][3]);
+    a[kk][2] = pack_bf16(w[2 * kk + 1][0], w[2 * kk + 1][1]);
+    a[kk][3] = pack_bf16(w[2 * kk + 1][2], w[2 * kk + 1][3]);
+  }
+}
+
+// acc += W Y for one warp, bf16: W (16, 16 * KK) packed by pack_a (kept in
+// registers), Y points at column 0 of the warp's DT * 8 output columns in a
+// (16 * KK, RS) tile; the sum runs over the rows of Y, in order.  acc[n][e]
+// is row g + 8 (e / 2), column 8 n + 2 t + e % 2.
+template <int RS, int KK, int DT>
+__device__ __forceinline__ void warp_accum_bf16(const uint32_t (&a)[KK][4],
+                                                const __nv_bfloat16* Y,
+                                                int lane,
+                                                float (&acc)[DT][4]) {
+  const int mi = lane >> 3;
+  const int yr = (lane & 7) + ((mi & 1) << 3), yc = (mi >> 1) * 8;
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+    for (int n = 0; n < DT; n += 2) {
+      uint32_t b[4];
+      ldsm_x4_t(b, Y + (16 * kk + yr) * RS + 8 * n + yc);
+      mma_bf16(acc[n], a[kk], b[0], b[1]);
+      mma_bf16(acc[n + 1], a[kk], b[2], b[3]);
+    }
+}
+
+// acc += W Y for one warp, f32 in the 3xTF32 split: W (16, 8 NT) is a score
+// tile in the fragment layout of warp_scores, Y as for warp_accum_bf16.  K
+// step j is score n-tile j, its k order permuted (2t -> t, 2t+1 -> t + 4)
+// on both operands.  The tile's products are summed in a fresh accumulator
+// and added to acc with one rounded add: the tensor cores' f32 adds do not
+// round to nearest, and over the hundreds of MMAs of a long sequence their
+// error builds up in one running sum (5e-5 relative at S = 2048).
+template <int RS, int NT, int DT>
+__device__ __forceinline__ void warp_accum_tf32(const float (&w)[NT][4],
+                                                const float* Y, int lane,
+                                                float (&acc)[DT][4]) {
+  const int g = lane >> 2, t = lane & 3;
+  float tile[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) tile[n][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    uint32_t ah[4], al[4];
+    split(w[j][0], ah[0], al[0]);
+    split(w[j][2], ah[1], al[1]);
+    split(w[j][1], ah[2], al[2]);
+    split(w[j][3], ah[3], al[3]);
+    const float* y = Y + (8 * j + 2 * t) * RS + g;
+#pragma unroll
+    for (int n = 0; n < DT; ++n) {
+      uint32_t bh[2], bl[2];
+      split(y[8 * n], bh[0], bl[0]);
+      split(y[RS + 8 * n], bh[1], bl[1]);
+      mma3(tile[n], ah, al, bh, bl);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += tile[n][e];
+}
+
+// 2^x in one MUFU instruction (ex2.approx: within 2 ulp; results below
+// 2^-126 flush to 0, far below anything a softmax weight contributes).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// What the two passes share of a tile's element-wise step.
+struct Mask {
+  int Sq, Sk, causal, window;
+  float softcap, scale, scale_log2, inv_sk;
+};
+
+// The dK/dV pass's scores of one warp over NP n-tiles from column col0 of
+// the streamed tile: s = K Q^T becomes p and dp = V dO^T becomes dS
+// (transposed: rows are the warp's keys c0 .., columns queries q0 +
+// col0 ..).  full: every pair of the tile is seen and exists.
+template <typename T, int HD, int RS, int NP>
+__device__ __forceinline__ void dkdv_part(
+    const T* Kw, const T* Vw, const T* Qt, const T* dOt, int col0,
+    const float* lse_s, const float* d_s, bool full, int c0, int q0,
+    const Mask& mk, int lane, float (&s)[NP][4], float (&dp)[NP][4]) {
+  warp_scores<T, HD, RS, NP>(Kw, Qt + col0 * RS, Vw, dOt + col0 * RS, lane,
+                             s, dp);
+  const int g = lane >> 2, t = lane & 3;
+  if (full) {
+#pragma unroll
+    for (int j = 0; j < NP; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int rr = col0 + 8 * j + 2 * t + (e & 1);
+        const float p =
+            fast_exp2(fmaf(s[j][e], mk.scale_log2, -lse_s[rr] * kLog2e));
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - d_s[rr]);
+      }
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < NP; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = c0 + g + 8 * (e >> 1);
+      const int rr = col0 + 8 * j + 2 * t + (e & 1);
+      const int r = q0 + rr;
+      float p = 0.f, ds = 0.f;
+      if (r < mk.Sq) {
+        const float x = logit(s[j][e], r, c, mk.Sk, mk.causal, mk.window,
+                              mk.scale, mk.softcap);
+        grad_entry(x, dp[j][e], lse_s[rr], d_s[rr], mk.softcap, mk.inv_sk, p,
+                   ds);
+      }
+      s[j][e] = p;
+      dp[j][e] = ds;
+    }
+}
+
+// The dQ pass's scores of one warp over NP n-tiles from column col0 of the
+// streamed tile: s = Q K^T, and dp = dO V^T becomes dS (rows are the
+// warp's queries r0 .., columns keys kb + col0 ..); lse2 = lse * log2(e).
+template <typename T, int HD, int RS, int NP>
+__device__ __forceinline__ void dq_part(
+    const T* Qw, const T* dOw, const T* Kt, const T* Vt, int col0,
+    const float (&lse_r)[2], const float (&lse2_r)[2], const float (&d_r)[2],
+    bool full, int r0, int kb, const Mask& mk, int lane,
+    float (&dp)[NP][4]) {
+  float s[NP][4];
+  warp_scores<T, HD, RS, NP>(Qw, Kt + col0 * RS, dOw, Vt + col0 * RS, lane,
+                             s, dp);
+  const int g = lane >> 2, t = lane & 3;
+  if (full) {
+#pragma unroll
+    for (int j = 0; j < NP; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const float p = fast_exp2(fmaf(s[j][e], mk.scale_log2, -lse2_r[h]));
+        dp[j][e] = p * (dp[j][e] - d_r[h]);
+      }
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < NP; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      const int r = r0 + g + 8 * h;
+      const int c = kb + col0 + 8 * j + 2 * t + (e & 1);
+      float p = 0.f, ds = 0.f;
+      if (r < mk.Sq) {
+        const float x = logit(s[j][e], r, c, mk.Sk, mk.causal, mk.window,
+                              mk.scale, mk.softcap);
+        grad_entry(x, dp[j][e], lse_r[h], d_r[h], mk.softcap, mk.inv_sk, p,
+                   ds);
+      }
+      dp[j][e] = ds;
+    }
+}
+
+// Writes a warp's (16, DT * 8) accumulator times mul into rows row0 ..
+// row0 + 15 (those below S) and columns col0 .. of a (S, HD) matrix.
+template <typename T, int HD, int DT>
+__device__ __forceinline__ void store_acc(T* __restrict__ dst,
+                                          const float (&acc)[DT][4], int row0,
+                                          int col0, int S, float mul,
+                                          int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + g + 8 * h;
+    if (r >= S) continue;
+    T* row = dst + (long long)r * HD + col0 + 2 * t;
+#pragma unroll
+    for (int n = 0; n < DT; ++n) {
+      store(row + 8 * n, acc[n][2 * h] * mul);
+      store(row + 8 * n + 1, acc[n][2 * h + 1] * mul);
+    }
+  }
+}
+
+// One block per (key tile, bh): dK and dV of ROWS keys, looping over the
 // query tiles that see them.
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) dkdv_kernel(
+__global__ void __launch_bounds__((Bwd<T, HD>::THREADS),
+                                  (Bwd<T, HD>::DKDV_BLOCKS)) dkdv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
     int Sq, int Sk, int causal, int window, float softcap, float scale) {
-  using L = Tiles<HD>;
-  constexpr int BM = L::BM, BN = L::BN, SP = L::SP;
-  constexpr int PT = BM + 16;  // row stride of the transposed score tiles
-  constexpr int RM = L::RM, RN = L::RN, NC = L::NC;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + BN * SP;
-  float* Qs = Vs + BN * SP;
-  float* dOs = Qs + BM * SP;
-  float* PTs = dOs + BM * SP;   // (BN keys, BM queries)
-  float* dSTs = PTs + BN * PT;  // (BN keys, BM queries)
-  float* lse_s = dSTs + BN * PT;
-  float* d_s = lse_s + BM;
+  using C = Bwd<T, HD>;
+  constexpr int RS = C::RS, TILE = C::TILE, COLS = C::COLS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Ks = reinterpret_cast<T*>(smem_raw);
+  T* Vs = Ks + TILE;
+  T* Ss = Vs + TILE;  // buffer b: q at Ss + 2 b TILE, dO one TILE further
+  float* rows_s = reinterpret_cast<float*>(Ss + 4 * TILE);  // lse, D
 
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int k0 = blockIdx.x * BN;
-  const long long bh = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp % C::WM, wn = warp / C::WM;
+  const int g = lane >> 2, t = lane & 3;
+  // key tiles along y, so all heads' key tile 0 (the heaviest when
+  // causal) starts first
+  const int k0 = blockIdx.y * C::ROWS;
+  const long long bh = blockIdx.x;
   const T* qg = q + bh * Sq * HD;
   const T* dog = dout + bh * Sq * HD;
-  load_tile<T, HD, SP>(Ks, k + bh * Sk * HD, k0, BN, Sk);
-  load_tile<T, HD, SP>(Vs, v + bh * Sk * HD, k0, BN, Sk);
+  const float* lseg = lse + bh * Sq;
+  const float* dg = delta + bh * Sq;
+  async_tile<T, HD>(Ks, k + bh * Sk * HD, k0, Sk);
+  async_tile<T, HD>(Vs, v + bh * Sk * HD, k0, Sk);
 
   // query rows that see keys k0 .. k_last, and the rows r >= Sk + window - 1
   // that see no key (they weigh every key)
-  const int k_last = min(k0 + BN, Sk) - 1;
+  const int k_last = min(k0 + C::ROWS, Sk) - 1;
   const int r_lo = causal ? k0 : 0;
   const int r_hi = window > 0 && Sq < Sk + window ? min(Sq, k_last + window)
                                                   : Sq;
-  const float inv_sk = 1.f / Sk;
+  const int first = (r_lo / COLS) * COLS;
+  const int n_tiles = r_hi > first ? (r_hi - first + COLS - 1) / COLS : 0;
+  const Mask mk{Sq, Sk, causal, window, softcap, scale, scale * kLog2e,
+                1.f / Sk};
+  // tiles with no mask, no soft cap and no missing key take a short path
+  const bool plain = softcap <= 0.f && window <= 0 && k0 + C::ROWS <= Sk;
 
-  float dka[RN][4 * NC], dva[RN][4 * NC];
-#pragma unroll
-  for (int i = 0; i < RN; ++i)
-#pragma unroll
-    for (int e = 0; e < 4 * NC; ++e) dka[i][e] = dva[i][e] = 0.f;
+  auto stage = [&](int i) {
+    const int q0 = first + i * COLS;
+    T* dst = Ss + (i & 1) * 2 * TILE;
+    float* rdst = rows_s + (i & 1) * 2 * COLS;
+    async_tile<T, HD>(dst, qg, q0, Sq);
+    async_tile<T, HD>(dst + TILE, dog, q0, Sq);
+    async_row(rdst, lseg, q0, COLS, Sq, C::THREADS);
+    async_row(rdst + COLS, dg, q0, COLS, Sq, C::THREADS);
+  };
+  ring_start(n_tiles, stage);
 
-  for (int q0 = (r_lo / BM) * BM; q0 < r_hi; q0 += BM) {
-    __syncthreads();
-    load_tile<T, HD, SP>(Qs, qg, q0, BM, Sq);
-    load_tile<T, HD, SP>(dOs, dog, q0, BM, Sq);
-    for (int r = threadIdx.x; r < BM; r += kThreads) {
-      const bool in = q0 + r < Sq;
-      lse_s[r] = in ? lse[bh * Sq + q0 + r] : 0.f;
-      d_s[r] = in ? delta[bh * Sq + q0 + r] : 0.f;
-    }
-    __syncthreads();
-    float s[RN][RM], dp[RN][RM];
-    tile_dot<HD, SP, RN, RM>(Ks, Qs, ty, tx, s);
-    tile_dot<HD, SP, RN, RM>(Vs, dOs, ty, tx, dp);
+  float dka[C::DT][4], dva[C::DT][4];
 #pragma unroll
-    for (int i = 0; i < RN; ++i) {
-      const int c = k0 + ty + 16 * i;
+  for (int n = 0; n < C::DT; ++n)
 #pragma unroll
-      for (int j = 0; j < RM; ++j) {
-        const int rr = tx + 16 * j;
-        const int r = q0 + rr;
-        float p = 0.f, ds = 0.f;
-        if (r < Sq) {
-          const float x = logit(s[i][j], r, c, Sk, causal, window, scale,
-                                softcap);
-          grad_entry(x, dp[i][j], lse_s[rr], d_s[rr], softcap, inv_sk, p,
-                     ds);
-        }
-        PTs[(ty + 16 * i) * PT + rr] = p;
-        dSTs[(ty + 16 * i) * PT + rr] = ds;
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    ring_next(i, n_tiles, stage);
+    const T* Qt = Ss + (i & 1) * 2 * TILE;
+    const T* dOt = Qt + TILE;
+    const float* lse_s = rows_s + (i & 1) * 2 * COLS;
+    const float* d_s = lse_s + COLS;
+    const int q0 = first + i * COLS;
+    const bool full =
+        plain && q0 + COLS <= Sq && (!causal || q0 >= k0 + C::ROWS - 1);
+    const T* Kw = Ks + wm * 16 * RS;
+    const T* Vw = Vs + wm * 16 * RS;
+    if constexpr (sizeof(T) == 2) {
+      // the tile's columns in two halves, each scored, packed to bf16 and
+      // accumulated before the next, so fewer score registers are live
+      constexpr int NH = C::NT / 2;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float s[NH][4], dp[NH][4];
+        uint32_t pa[NH / 2][4], da[NH / 2][4];
+        dkdv_part<T, HD, RS, NH>(Kw, Vw, Qt, dOt, 8 * NH * h, lse_s, d_s,
+                                 full, k0 + wm * 16, q0, mk, lane, s, dp);
+        pack_a<NH>(s, pa);
+        pack_a<NH>(dp, da);
+        const int off = 8 * NH * h * RS + wn * C::DW;  // the half's rows
+        warp_accum_bf16<RS, NH / 2, C::DT>(pa, dOt + off, lane, dva);
+        warp_accum_bf16<RS, NH / 2, C::DT>(da, Qt + off, lane, dka);
       }
+    } else {
+      float s[C::NT][4], dp[C::NT][4];
+      dkdv_part<T, HD, RS, C::NT>(Kw, Vw, Qt, dOt, 0, lse_s, d_s, full,
+                                  k0 + wm * 16, q0, mk, lane, s, dp);
+      warp_accum_tf32<RS, C::NT, C::DT>(s, dOt + wn * C::DW, lane, dva);
+      warp_accum_tf32<RS, C::NT, C::DT>(dp, Qt + wn * C::DW, lane, dka);
     }
-    __syncthreads();
-    tile_acc<HD, SP, RN, NC>(PTs, PT, dOs, BM, ty, tx, dva);
-    tile_acc<HD, SP, RN, NC>(dSTs, PT, Qs, BM, ty, tx, dka);
+    ring_done();
   }
+  cp_async_wait<0>();
 
-#pragma unroll
-  for (int i = 0; i < RN; ++i) {
-    const int c = k0 + ty + 16 * i;
-    if (c >= Sk) continue;
-    T* krow = dk + (bh * Sk + c) * HD;
-    T* vrow = dv + (bh * Sk + c) * HD;
-#pragma unroll
-    for (int cc = 0; cc < NC; ++cc)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        store(&krow[4 * tx + 64 * cc + e], dka[i][4 * cc + e] * scale);
-        store(&vrow[4 * tx + 64 * cc + e], dva[i][4 * cc + e]);
-      }
-  }
+  const long long base = bh * Sk * HD;
+  store_acc<T, HD, C::DT>(dk + base, dka, k0 + wm * 16, wn * C::DW, Sk, scale,
+                          lane);
+  store_acc<T, HD, C::DT>(dv + base, dva, k0 + wm * 16, wn * C::DW, Sk, 1.f,
+                          lane);
 }
 
-// One block per (query tile, bh): dQ of BM rows, looping over its key tiles.
+// One block per (query tile, bh): dQ of ROWS queries, looping over its key
+// tiles.
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) dq_kernel(
+__global__ void __launch_bounds__((Bwd<T, HD>::THREADS),
+                                  (Bwd<T, HD>::DQ_BLOCKS)) dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dq, int Sq, int Sk,
     int causal, int window, float softcap, float scale) {
-  using L = Tiles<HD>;
-  constexpr int BM = L::BM, BN = L::BN, SP = L::SP, PS = L::PS;
-  constexpr int RM = L::RM, RN = L::RN, NC = L::NC;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + BM * SP;
-  float* Ks = dOs + BM * SP;
-  float* Vs = Ks + BN * SP;
-  float* dSs = Vs + BN * SP;  // (BM queries, BN keys)
+  using C = Bwd<T, HD>;
+  constexpr int RS = C::RS, TILE = C::TILE, COLS = C::COLS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* dOs = Qs + TILE;
+  T* Ss = dOs + TILE;  // buffer b: k at Ss + 2 b TILE, v one TILE further
 
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int q0 = qt * BM;
-  const long long bh = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp % C::WM, wn = warp / C::WM;
+  const int g = lane >> 2, t = lane & 3;
+  // query tiles along y, the last (the heaviest when causal) first for
+  // all heads
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * C::ROWS;
+  const long long bh = blockIdx.x;
   const T* kg = k + bh * Sk * HD;
   const T* vg = v + bh * Sk * HD;
-  load_tile<T, HD, SP>(Qs, q + bh * Sq * HD, q0, BM, Sq);
-  load_tile<T, HD, SP>(dOs, dout + bh * Sq * HD, q0, BM, Sq);
+  async_tile<T, HD>(Qs, q + bh * Sq * HD, q0, Sq);
+  async_tile<T, HD>(dOs, dout + bh * Sq * HD, q0, Sq);
 
-  float lse_r[RM], d_r[RM];
+  float lse_r[2], d_r[2];
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int r = q0 + ty + 16 * i;
-    lse_r[i] = r < Sq ? lse[bh * Sq + r] : 0.f;
-    d_r[i] = r < Sq ? delta[bh * Sq + r] : 0.f;
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + wm * 16 + g + 8 * h;
+    lse_r[h] = r < Sq ? lse[bh * Sq + r] : 0.f;
+    d_r[h] = r < Sq ? delta[bh * Sq + r] : 0.f;
   }
   int k_begin, k_end;
-  key_span<BN>(q0, min(BM, Sq - q0), Sk, causal, window, k_begin, k_end);
+  key_span<COLS>(q0, min(C::ROWS, Sq - q0), Sk, causal, window, k_begin,
+                 k_end);
+  const int n_tiles =
+      k_end > k_begin ? (k_end - k_begin + COLS - 1) / COLS : 0;
+  const Mask mk{Sq, Sk, causal, window, softcap, scale, scale * kLog2e,
+                1.f / Sk};
+  // tiles with no mask, no soft cap and no missing row take a short path
+  const bool plain = softcap <= 0.f && window <= 0 && q0 + C::ROWS <= Sq;
+  const float lse2_r[2] = {lse_r[0] * kLog2e, lse_r[1] * kLog2e};
 
-  float dqa[RM][4 * NC];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int e = 0; e < 4 * NC; ++e) dqa[i][e] = 0.f;
+  auto stage = [&](int i) {
+    T* dst = Ss + (i & 1) * 2 * TILE;
+    async_tile<T, HD>(dst, kg, k_begin + i * COLS, Sk);
+    async_tile<T, HD>(dst + TILE, vg, k_begin + i * COLS, Sk);
+  };
+  ring_start(n_tiles, stage);
 
-  for (int k0 = k_begin; k0 < k_end; k0 += BN) {
-    __syncthreads();
-    load_tile<T, HD, SP>(Ks, kg, k0, BN, Sk);
-    load_tile<T, HD, SP>(Vs, vg, k0, BN, Sk);
-    __syncthreads();
-    float s[RM][RN], dp[RM][RN];
-    tile_dot<HD, SP, RM, RN>(Qs, Ks, ty, tx, s);
-    tile_dot<HD, SP, RM, RN>(dOs, Vs, ty, tx, dp);
+  float dqa[C::DT][4];
 #pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int r = q0 + ty + 16 * i;
+  for (int n = 0; n < C::DT; ++n)
 #pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        float p = 0.f, ds = 0.f;
-        if (r < Sq) {
-          const float x = logit(s[i][j], r, k0 + tx + 16 * j, Sk, causal,
-                                window, scale, softcap);
-          grad_entry(x, dp[i][j], lse_r[i], d_r[i], softcap, 1.f / Sk, p,
-                     ds);
-        }
-        dSs[(ty + 16 * i) * PS + tx + 16 * j] = ds;
+    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    ring_next(i, n_tiles, stage);
+    const T* Kt = Ss + (i & 1) * 2 * TILE;
+    const T* Vt = Kt + TILE;
+    const int kb = k_begin + i * COLS;
+    const bool full =
+        plain && kb + COLS <= Sk && (!causal || q0 >= kb + COLS - 1);
+    const T* Qw = Qs + wm * 16 * RS;
+    const T* dOw = dOs + wm * 16 * RS;
+    if constexpr (sizeof(T) == 2) {
+      constexpr int NH = C::NT / 2;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float dp[NH][4];
+        uint32_t da[NH / 2][4];
+        dq_part<T, HD, RS, NH>(Qw, dOw, Kt, Vt, 8 * NH * h, lse_r, lse2_r,
+                               d_r, full, q0 + wm * 16, kb, mk, lane, dp);
+        pack_a<NH>(dp, da);
+        warp_accum_bf16<RS, NH / 2, C::DT>(
+            da, Kt + 8 * NH * h * RS + wn * C::DW, lane, dqa);
       }
+    } else {
+      float dp[C::NT][4];
+      dq_part<T, HD, RS, C::NT>(Qw, dOw, Kt, Vt, 0, lse_r, lse2_r, d_r, full,
+                                q0 + wm * 16, kb, mk, lane, dp);
+      warp_accum_tf32<RS, C::NT, C::DT>(dp, Kt + wn * C::DW, lane, dqa);
     }
-    __syncthreads();
-    tile_acc<HD, SP, RM, NC>(dSs, PS, Ks, BN, ty, tx, dqa);
+    ring_done();
   }
+  cp_async_wait<0>();
 
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= Sq) continue;
-    T* row = dq + (bh * Sq + r) * HD;
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        store(&row[4 * tx + 64 * c + e], dqa[i][4 * c + e] * scale);
-  }
+  store_acc<T, HD, C::DT>(dq + bh * Sq * HD, dqa, q0 + wm * 16, wn * C::DW,
+                          Sq, scale, lane);
 }
 
 // ------------------------------------------------------------------ launch
@@ -517,17 +1005,6 @@ template <int HD>
 constexpr size_t fwd_smem() {
   using L = Tiles<HD>;
   return sizeof(float) * ((L::BM + 2 * L::BN) * L::SP + L::BM * L::PS);
-}
-template <int HD>
-constexpr size_t dkdv_smem() {
-  using L = Tiles<HD>;
-  return sizeof(float) * (2 * (L::BN + L::BM) * L::SP +
-                          2 * L::BN * (L::BM + 16) + 2 * L::BM);
-}
-template <int HD>
-constexpr size_t dq_smem() {
-  using L = Tiles<HD>;
-  return sizeof(float) * (2 * (L::BM + L::BN) * L::SP + L::BM * L::PS);
 }
 
 constexpr int kMaxDevices = 64;
@@ -572,6 +1049,7 @@ cudaError_t run_fwd(const Args& a, void* o, float* lse, cudaStream_t s) {
 template <typename T, int HD>
 cudaError_t run_dkdv(const Args& a, float* delta, void* dk, void* dv,
                      cudaStream_t s) {
+  using C = Bwd<T, HD>;
   const long long rows = (long long)a.BH * a.Sq;
   const long long blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
@@ -579,11 +1057,11 @@ cudaError_t run_dkdv(const Args& a, float* delta, void* dk, void* dv,
       static_cast<const T*>(a.o), static_cast<const T*>(a.dout), delta, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  constexpr size_t smem = dkdv_smem<HD>();
-  err = ensure_smem<dkdv_kernel<T, HD>>(smem);
+  err = ensure_smem<dkdv_kernel<T, HD>>(C::SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Sk + Tiles<HD>::BN - 1) / Tiles<HD>::BN, a.BH);
-  dkdv_kernel<T, HD><<<grid, kThreads, smem, s>>>(
+  const dim3 grid(a.BH, (a.Sk + C::ROWS - 1) / C::ROWS);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  dkdv_kernel<T, HD><<<grid, C::THREADS, C::SMEM, s>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse, delta,
       static_cast<T*>(dk), static_cast<T*>(dv), a.Sq, a.Sk, a.causal,
@@ -593,11 +1071,12 @@ cudaError_t run_dkdv(const Args& a, float* delta, void* dk, void* dv,
 
 template <typename T, int HD>
 cudaError_t run_dq(const Args& a, void* dq, cudaStream_t s) {
-  constexpr size_t smem = dq_smem<HD>();
-  cudaError_t err = ensure_smem<dq_kernel<T, HD>>(smem);
+  using C = Bwd<T, HD>;
+  cudaError_t err = ensure_smem<dq_kernel<T, HD>>(C::SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Sq + Tiles<HD>::BM - 1) / Tiles<HD>::BM, a.BH);
-  dq_kernel<T, HD><<<grid, kThreads, smem, s>>>(
+  const dim3 grid(a.BH, (a.Sq + C::ROWS - 1) / C::ROWS);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  dq_kernel<T, HD><<<grid, C::THREADS, C::SMEM, s>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
       a.delta, static_cast<T*>(dq), a.Sq, a.Sk, a.causal, a.window,

@@ -119,6 +119,9 @@ def _check(name: str, q, k, v, *rows) -> None:
                          "the sequences non-empty")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: tensors must be contiguous")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: tensors must be 16-byte aligned (the "
+                         "backward copies 16-byte chunks)")
 
 
 def _mask_args(q, causal, window, softcap):

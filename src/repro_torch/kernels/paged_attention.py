@@ -236,13 +236,43 @@ KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FN = None
 
+#: blocks the split count aims at per SM, and the fewest pages a split
+#: gets (one for each of a block's 4 warps)
+BLOCKS_PER_SM = 4
+MIN_PAGES_PER_SPLIT = 4
+
+
+def decode_splits(B: int, KV: int, P: int, sms: int) -> tuple[int, int]:
+    """``(splits, pages_per_split)`` of the paged-decode kernel's grid
+    (B·KV, splits): split ``s`` owns the logical pages ``[s·pps,
+    min((s+1)·pps, P))``.  A function of the shapes alone (never of
+    ``q_pos``, which stays on the card): enough blocks for
+    ``BLOCKS_PER_SM`` per SM, at least ``MIN_PAGES_PER_SPLIT`` pages a
+    split, no split without a page, and one split once B·KV fills the
+    card."""
+    want = max(1, -(-BLOCKS_PER_SM * sms // (B * KV)))
+    pps = min(P, max(MIN_PAGES_PER_SPLIT, -(-P // want)))
+    return -(-P // pps), pps
+
+
+_SMS: dict[int, int] = {}
+
+
+def _sm_count(device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SMS:
+        props = torch.cuda.get_device_properties(idx)
+        _SMS[idx] = props.multi_processor_count
+    return _SMS[idx]
+
 
 def _kernel_fn():
     global _FN
     if _FN is None:
         lib = _build.load("paged_decode")
         fn = lib.paged_decode
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
                        + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -259,9 +289,12 @@ def paged_decode_cuda(q, k_pages, v_pages, page_table, q_pos, *,
 
     Same contract as :func:`paged_decode_gather`; CUDA tensors only, q
     and the pools in one dtype (float32 or bfloat16), every tensor
-    contiguous.  Raises on anything the kernel does not take, when
-    the launch is refused, and under autograd (the kernel has no
-    backward).  ``paged_decode_cuda.launches`` counts the launches."""
+    contiguous and 16-byte aligned.  Raises on anything the kernel does
+    not take, when the launch is refused, and under autograd (the kernel
+    has no backward).  The pages of each (b, kv) are split over
+    :func:`decode_splits` blocks, whose f32 partials go to scratch from
+    ``torch.empty`` and are merged by the entry point's combine kernel.
+    ``paged_decode_cuda.launches`` counts the calls of the entry point."""
     tensors = (q, k_pages, v_pages, page_table, q_pos)
     if not all(t.is_cuda for t in tensors):
         raise ValueError("paged_decode_cuda takes CUDA tensors only")
@@ -302,20 +335,29 @@ def paged_decode_cuda(q, k_pages, v_pages, page_table, q_pos, *,
         raise ValueError(f"paged_decode_cuda: window {window} < 1")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_decode_cuda: tensors must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
+        raise ValueError("paged_decode_cuda: q and the page pools must be "
+                         "16-byte aligned (the kernel copies 16-byte chunks)")
 
     fn, err_str = _kernel_fn()
     out = torch.empty_like(q)
+    splits, pps = decode_splits(B, KV, P, _sm_count(q.device))
+    part = (torch.empty(B * KV * splits * (G * hd + 2 * G),
+                        dtype=torch.float32, device=q.device)
+            if splits > 1 else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  page_table.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
-                 B, KV, G, hd, N, ps, P, window or 0, float(softcap or 0.0),
+                 None if part is None else part.data_ptr(), B, KV, G, hd, N,
+                 ps, P, splits, pps, window or 0, float(softcap or 0.0),
                  1.0 / math.sqrt(hd), _KERNEL_DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(
             f"paged_decode kernel launch failed at G={G}, hd={hd}, "
-            f"page_size={ps}: {err_str(err).decode()} (cudaError {err}; a "
-            "block's shared memory grows with G, hd and page_size)")
+            f"page_size={ps}, splits={splits}: {err_str(err).decode()} "
+            f"(cudaError {err}; a block's shared memory grows with G, hd "
+            "and page_size)")
     paged_decode_cuda.launches += 1
     return out
 

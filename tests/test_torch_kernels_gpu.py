@@ -122,6 +122,56 @@ def test_paged_decode_kernel_refuses_autograd(cuda):
         pk.paged_decode_cuda(q, *args[1:])
 
 
+#: B, KV, G, hd, ps, P, window, softcap, q_pos: the split over KV pages
+#: (B2 KV2 on a 40- or 37-page table: 10 splits of 4 pages on an H100) —
+#: sequences across split boundaries, q_pos in the first split, a window
+#: that starts mid-split, P that does not divide into the splits, one
+#: sequence over 16 splits at G 16, and the timed shape (B8 KV8, 128
+#: pages, 9 splits) with a window and softcap
+SPLIT_CASES = [
+    (2, 2, 4, 64, 16, 40, None, None, [639, 300]),
+    (2, 2, 4, 64, 16, 40, None, None, [20, 63]),
+    (2, 2, 4, 64, 16, 40, 90, None, [500, 300]),
+    (2, 2, 4, 64, 16, 37, 50, 30.0, [591, 100]),
+    (1, 1, 16, 128, 16, 64, 700, None, [1000]),
+    (8, 8, 4, 64, 16, 128, 300, 50.0,
+     [2047, 1500, 1023, 700, 333, 64, 15, 0]),
+]
+
+
+def _split_inputs(B, KV, G, hd, ps, P, q_pos, dtype, device):
+    r = np.random.default_rng(1)
+    N = 1 + B * P
+    q = torch.from_numpy(r.standard_normal((B, KV, G, hd), np.float32))
+    kp = torch.from_numpy(r.standard_normal((N, ps, KV, hd), np.float32))
+    vp = torch.from_numpy(r.standard_normal((N, ps, KV, hd), np.float32))
+    table = torch.from_numpy(
+        (1 + r.permutation(B * P)).reshape(B, P).astype(np.int32))
+    return ([t.to(device, dtype) for t in (q, kp, vp)]
+            + [table.to(device), torch.tensor(q_pos, dtype=torch.int32,
+                                              device=device)])
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,KV,G,hd,ps,P,window,sc,q_pos", SPLIT_CASES)
+def test_paged_decode_split_over_pages_matches_gather(cuda, dtype, atol, B, KV,
+                                                      G, hd, ps, P, window,
+                                                      sc, q_pos):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    splits, pps = pk.decode_splits(B, KV, P, sms)
+    assert splits > 1
+    args = _split_inputs(B, KV, G, hd, ps, P, q_pos, dtype, cuda)
+    n0 = pk.paged_decode_cuda.launches
+    got = pk.paged_decode_cuda(*args, window=window, softcap=sc)
+    again = pk.paged_decode_cuda(*args, window=window, softcap=sc)
+    want = pk.paged_decode_gather(*args, window=window, softcap=sc)
+    torch.cuda.synchronize()
+    assert pk.paged_decode_cuda.launches == n0 + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
 # --------------------------------------------------------------------------
 # MoE dispatch / combine
 # --------------------------------------------------------------------------
@@ -427,6 +477,36 @@ def test_flash_backward_matches_plain_autograd(cuda, dtype, B, H, Sq, Sk, hd,
     atol, rtol = FLASH_BWD_TOL[dtype]
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == dtype and bool(torch.isfinite(a.float()).all())
+        torch.testing.assert_close(a.float(), b.float(), atol=atol, rtol=rtol,
+                                   msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Sq,Sk,hd,causal,window,cap", [
+    (1, 2, 256, 256, 256, True, None, None),       # hd 256
+    (2, 2, 333, 333, 256, False, None, 20.0),      # hd 256, ragged, softcap
+    (1, 3, 517, 517, 64, True, None, 30.0),        # ragged, softcap
+    (1, 2, 190, 190, 128, True, 50, 25.0),         # ragged, softcap, window
+])
+def test_flash_backward_hd256_and_ragged_softcap(cuda, dtype, B, H, Sq, Sk,
+                                                 hd, causal, window, cap):
+    """The tensor-core backward at head dim 256 and at ragged lengths with
+    a soft cap, against autograd of the plain version (FLASH_BWD_TOL), and
+    the same bits from a second run."""
+    q, k, v, do = _flash_inputs(B, H, Sq, Sk, hd, dtype, cuda, seed=3)
+    kw = {"causal": causal, "window": window, "softcap": cap}
+
+    def grads(fn):
+        qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        return torch.autograd.grad(fn(*qkv, **kw), qkv, do)
+
+    got = grads(fk.flash_attention_cuda)
+    again = grads(fk.flash_attention_cuda)
+    want = grads(fk.flash_attention_ref)
+    torch.cuda.synchronize()
+    atol, rtol = FLASH_BWD_TOL[dtype]
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, want, again):
+        assert torch.equal(a, c), name
         torch.testing.assert_close(a.float(), b.float(), atol=atol, rtol=rtol,
                                    msg=name)
 

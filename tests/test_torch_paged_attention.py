@@ -246,3 +246,28 @@ def test_admit_from_reservation_and_errors():
         pool.admit(0, 4)                           # already live
     with pytest.raises(ValueError):
         pool.cancel_reservation(4)                 # nothing reserved
+
+
+@pytest.mark.parametrize("B,KV,P", [
+    (8, 8, 128), (4, 8, 35), (4, 16, 35), (2, 2, 37), (2, 2, 40), (3, 2, 5),
+    (1, 1, 1), (1, 1, 3), (64, 16, 128), (33, 4, 2048), (1, 32, 7)])
+@pytest.mark.parametrize("sms", [132, 114, 1])
+def test_decode_splits_cover_every_page_once(B, KV, P, sms):
+    """The kernel's split count is a function of the shapes alone: the
+    splits' page ranges [s·pps, (s+1)·pps) ∩ [0, P) cover every page of
+    the table exactly once, none is empty, there are never more splits
+    than pages, and one split once B·KV alone gives BLOCKS_PER_SM blocks
+    per SM."""
+    splits, pps = tpk.decode_splits(B, KV, P, sms)
+    assert 1 <= splits <= P and pps >= 1
+    owner = np.full(P, -1)
+    for s in range(splits):
+        pages = range(s * pps, min((s + 1) * pps, P))
+        assert len(pages) > 0, f"split {s} owns no page"
+        assert (owner[list(pages)] == -1).all()
+        owner[list(pages)] = s
+    assert (owner >= 0).all()
+    assert pps >= min(P, tpk.MIN_PAGES_PER_SPLIT)
+    if B * KV >= tpk.BLOCKS_PER_SM * sms:
+        assert splits == 1
+    assert tpk.decode_splits(B, KV, P, sms) == (splits, pps)
