@@ -22,38 +22,45 @@ result lines:
              (atol 1e-5) and bfloat16 (atol 5e-2); the MoE autograd Functions'
              dx / dbuf / dw against autograd of the slot versions at olmoe's
              prefill shape (atol 1e-5, dw 1e-4); flash attention forward at the
-             reference sweep and partial tiles (float32 atol 2e-5, bfloat16
-             2e-2) and its dq / dk / dv against autograd of the plain version
-             (float32 atol 1e-4 rtol 1e-4 and max|err| 2e-5, bfloat16 atol 5e-2
-             rtol 1.6e-2), the backward bit-equal over two runs; embedding bag
+             reference sweep, partial tiles and head dim 32 (float32 atol
+             2e-5, bfloat16 2e-2) and its dq / dk / dv against autograd of
+             the plain version (float32 atol 1e-4 rtol 1e-4 and max|err|
+             2e-5, bfloat16 atol 5e-2 rtol 1.6e-2), bfloat16 also within 1
+             ulp of the plain versions that make the kernels' roundings,
+             every flash entry point bit-equal over two runs; embedding bag
              at the reference sweep, the CTR pulls, duplicate and out-of-range
              ids (float32 atol 1e-5, bfloat16 5e-2, a bag of one bit-equal to a
              gather);
-4. serve   — ``serve_continuous`` of llama3.2-1b at full width (16
+4. cli     — ``python -m repro_torch.launch.serve`` (plain and
+             ``--continuous``) and ``python -m repro_torch.launch.train``
+             with their defaults (reduced llama3.2-1b, head dim 32) as
+             subprocesses on the card, then through their ``main`` in this
+             process, counting the flash launches;
+5. serve   — ``serve_continuous`` of llama3.2-1b at full width (16
              layers, d_model 2048, random weights from a seed, float32) on
              a mix of prompts of 64-512 tokens, counting kernel launches
              (paged decode 16 per decode step, flash forward 16 per
              prefill), plus a teacher-forced ``decode_step`` through the
              kernel and through the gather;
-5. profile — host clock vs profiled device time of full-width llama
+6. profile — host clock vs profiled device time of full-width llama
              decode steps (device idle share, launches per step);
-6. moe     — the same mix served by olmoe-1b-7b at full width (16 layers,
+7. moe     — the same mix served by olmoe-1b-7b at full width (16 layers,
              64 experts, top-8, float32), counting launches (MoE kernels
              16 per decode step and per prefill, paged decode 16 per
              decode step), a teacher-forced prefill and ``decode_step``
              through the kernels against the plain versions, and a
              profiled decode step split by kernel;
-7. train   — ``train("llama3.2-1b", reduced=False)`` on the card, float32
+8. train   — ``train("llama3.2-1b", reduced=False)`` on the card, float32
              with AdamW state on the card: 3 steps of 8 x 2048 tokens in
              microbatches of 4, counting the flash launches of every layer
              per step (forward twice: forward and remat recompute), finite
              losses and grad norms, peak memory;
-8. teacher — one ``loss_fn`` and its gradients through the kernels against
+9. teacher — one ``loss_fn`` and its gradients through the kernels against
              the plain versions on the card: llama3.2-1b and olmoe-1b-7b at
              full width and 2 layers;
-9. train profile — one profiled full-width llama train step: host clock,
+10. train profile — one profiled full-width llama train step: host clock,
              device busy split by kernel, idle share;
-10. ctr    — ``train_sparse_ps(steps=200)`` at ``CTRConfig()``'s full
+11. ctr    — ``train_sparse_ps(steps=200)`` at ``CTRConfig()``'s full
              size (200,000 x 16 table in 4 in-process shard servers, tower
              416 -> 512 -> 512 -> 256 -> 1, batch 256) on the card, in sync
              and then async mode: 3 re-pins, a hot-cache hit fraction, the
@@ -65,7 +72,7 @@ result lines:
              falls (the 200-step runs are too short to learn); 60 steps
              over 4 shard processes (losses bit-equal to in-process); a
              profiled window of sync steps (device idle share);
-11. timing — each kernel at its main path's shapes beside its bound, its
+12. timing — each kernel at its main path's shapes beside its bound, its
              plain version and, where one exists, a library call (CUDA
              events, median of repeats, L2 flushed or exceeded); paged
              decode also in bfloat16 and at the llama serve shape; the
@@ -414,7 +421,58 @@ FLASH_CASES = [
     ("llama train B4 H32 S2048 hd64", 4, 32, 2048, 2048, 64, True, None,
      None),
     ("olmoe train B1 H4 S512 hd128", 1, 4, 512, 512, 128, True, None, None),
+    ("llama reduced B2 H8 S128 hd32", 2, 8, 128, 128, 32, True, None, None),
+    ("causal S200 hd32 window 16 softcap 30", 1, 2, 200, 200, 32, True, 16,
+     30.0),
 ]
+
+#: keys a forward block takes per step (``Fwd<T, HD>::COLS`` in
+#: ``csrc/flash_attention.cu``): where the kernel's online softmax rescales
+FWD_KEY_TILE = {32: 64, 64: 64, 128: 64, 256: 32}
+
+
+def plain_logits(torch, fk, q, k, causal, window, softcap):
+    """The float32 logits as ``flash_attention_ref`` forms them, masked
+    logits -1e30, with tanh(u / cap) (None without a soft cap) and the
+    mask of visible pairs."""
+    Sq, Sk, hd = q.shape[2], k.shape[2], q.shape[3]
+    s = q.float() @ k.float().transpose(-1, -2) * hd ** -0.5
+    th = None
+    if softcap is not None:
+        th = torch.tanh(s / softcap)
+        s = softcap * th
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    ok = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        ok = ok & (qpos >= kpos)
+    if window is not None:
+        ok = ok & ((qpos - kpos) < window)
+    return torch.where(ok, s, fk.NEG_INF), th, ok
+
+
+def flash_fwd_bf16_rounded(torch, fk, q, k, v, causal, window, softcap):
+    """``flash_attention_ref`` written out in float32 with the roundings the
+    bfloat16 forward kernel makes: the online softmax over key tiles of the
+    kernel's width, in order, each tile's weights p = exp(s - running max)
+    rounded to bfloat16 for P·V and summed unrounded into the denominator.
+    Returns o in float32, before the output's own bfloat16 rounding."""
+    s, _, _ = plain_logits(torch, fk, q, k, causal, window, softcap)
+    vf = v.float()
+    m = torch.full(s.shape[:-1] + (1,), -math.inf, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(q.shape, device=q.device)
+    cols = FWD_KEY_TILE[q.shape[3]]
+    for c0 in range(0, k.shape[2], cols):
+        st = s[..., c0:c0 + cols]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(st - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = (acc * alpha
+               + p.to(torch.bfloat16).float() @ vf[..., c0:c0 + cols, :])
+        m = m_new
+    return acc / l
 
 
 def flash_bwd_bf16_rounded(torch, fk, q, k, v, o, do, causal, window,
@@ -427,20 +485,9 @@ def flash_bwd_bf16_rounded(torch, fk, q, k, v, o, do, causal, window,
         return t.to(torch.bfloat16).float()
 
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
-    Sq, Sk, hd = q.shape[2], k.shape[2], q.shape[3]
-    scale = hd ** -0.5
-    s = qf @ kf.transpose(-1, -2) * scale
-    if softcap is not None:
-        th = torch.tanh(s / softcap)
-        s = softcap * th
-    qpos = torch.arange(Sq, device=q.device)[:, None]
-    kpos = torch.arange(Sk, device=q.device)[None, :]
-    ok = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        ok = ok & (qpos >= kpos)
-    if window is not None:
-        ok = ok & ((qpos - kpos) < window)
-    p = torch.softmax(torch.where(ok, s, fk.NEG_INF), dim=-1)
+    scale = q.shape[3] ** -0.5
+    s, th, ok = plain_logits(torch, fk, q, k, causal, window, softcap)
+    p = torch.softmax(s, dim=-1)
     ds = p * (dof @ vf.transpose(-1, -2)
               - (dof * o.float()).sum(-1, keepdim=True))
     if softcap is not None:
@@ -460,21 +507,55 @@ def worst_gap(torch, a, b):
     return gap[i].item(), ref.abs().item(), gap[i].item() / ulp
 
 
+def head_ulp_gap(torch, a, r):
+    """The largest |a - r|, in bfloat16 ulps of the largest |r| of the same
+    (batch, head) matrix, with that gap and that largest |r|.  An element
+    is a sum whose terms have its head's scale: one that cancels to near 0
+    (or to exactly 0, as row 0's dQ does in causal attention) is held to
+    its head's ulp, not to its own; where one bfloat16 rounding of a term
+    fell differently it is a few ulps of the term away, thousands of ulps
+    of such an element."""
+    top = r.abs().amax((-2, -1), keepdim=True).expand_as(r)
+    ulp = torch.exp2(torch.frexp(top).exponent.float() - 8)
+    ratio = ((a - r).abs() / ulp).flatten()
+    i = int(ratio.argmax())
+    return (ratio[i].item(), (a - r).abs().flatten()[i].item(),
+            top.flatten()[i].item())
+
+
 def phase_flash_kernels(torch, fk):
     """The flash forward against ``flash_attention_ref`` and the backward
-    (dK/dV pass, then dQ pass) against autograd of it, on the same inputs.
-    For bfloat16 it also measures where the backward's worst gap lies: its
-    size in ulps of the reference value, and the gap that the reference
-    itself shows once it makes the kernel's roundings
-    (``flash_bwd_bf16_rounded``).  Returns each entry point's worst error
-    per dtype."""
+    (dK/dV pass, then dQ pass) against autograd of it, on the same inputs,
+    every entry point bit-equal over two runs.  bfloat16 is also held
+    within 1 ulp of the plain versions that make the kernels' roundings
+    (``flash_fwd_bf16_rounded``, ``flash_bwd_bf16_rounded``), each element
+    in ulps of its head's largest value (``head_ulp_gap``); the worst gap
+    in ulps of the element itself (``worst_gap``) is printed beside it.
+    Returns each entry point's worst error per dtype."""
     worst = {n: {"float32": 0.0, "bfloat16": 0.0}
              for n in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")}
     #: bfloat16: (gap, |ref|, ulps, case) of the kernel and of the rounded
-    #: plain backward against autograd, and the worst kernel-vs-rounded gap
-    bf16_gap = {"kernel vs autograd": (0.0,),
-                "rounded plain vs autograd": (0.0,),
-                "kernel vs rounded plain": (0.0,)}
+    #: plain backward against autograd, and the worst kernel-vs-rounded gap;
+    #: and (head ulps, gap, head max, case) of kernel vs rounded plain
+    bf16_gap = {"backward kernel vs autograd": (0.0,),
+                "backward rounded plain vs autograd": (0.0,),
+                "backward kernel vs rounded plain": (0.0,),
+                "forward kernel vs rounded plain": (0.0,)}
+    head_gap = {"forward": (0.0,), "backward": (0.0,)}
+
+    def rounded_check(direction, label, name, a, r):
+        gap = head_ulp_gap(torch, a, r) + (f"{label} {name}",)
+        check(gap[0] <= 1.0, f"flash {label} bfloat16: {direction} {name} is "
+              f"{gap[0]:.2f} ulp of its head ({gap[1]:.3e} at head max "
+              f"{gap[2]:.3e}) from the rounded plain version (> 1 ulp)")
+        if gap[0] > head_gap[direction][0]:
+            head_gap[direction] = gap
+
+    def track(key, x, y, where):
+        gap = worst_gap(torch, x, y) + (where,)
+        if gap[0] > bf16_gap[key][0]:
+            bf16_gap[key] = gap
+
     for label, B, H, Sq, Sk, hd, causal, window, cap in FLASH_CASES:
         kw = {"causal": causal, "window": window, "softcap": cap}
         for dname in ("float32", "bfloat16"):
@@ -487,14 +568,27 @@ def phase_flash_kernels(torch, fk):
             do = torch.randn((B, H, Sq, hd), generator=g,
                              device="cuda").to(dt)
             o, lse = fk.flash_fwd_cuda(q, k, v, **kw)
+            o2, lse2 = fk.flash_fwd_cuda(q, k, v, **kw)
             want = fk.flash_attention_ref(q, k, v, **kw)
             torch.cuda.synchronize()
+            check(torch.equal(o, o2) and torch.equal(lse, lse2),
+                  f"flash {label} {dname}: two forward runs are not "
+                  "bit-equal")
+            del o2, lse2
             check(bool(torch.isfinite(o.float()).all()),
                   f"flash {label} {dname}: non-finite output")
             err = (o.float() - want.float()).abs().max().item()
             worst["flash_fwd"][dname] = max(worst["flash_fwd"][dname], err)
             check(err <= FLASH_TOL[dname], f"flash {label} {dname}: "
                   f"max|kernel-plain| {err:.3e} > {FLASH_TOL[dname]:.0e}")
+            if dname == "bfloat16":
+                r = flash_fwd_bf16_rounded(torch, fk, q, k, v, causal,
+                                           window, cap)
+                r = r.to(torch.bfloat16).float()
+                rounded_check("forward", label, "o", o.float(), r)
+                track("forward kernel vs rounded plain", o.float(), r,
+                      f"{label} o")
+                del r
             dk, dv, delta = fk.flash_bwd_dkdv_cuda(q, k, v, o, lse, do, **kw)
             dq = fk.flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
             dk2, dv2, delta2 = fk.flash_bwd_dkdv_cuda(q, k, v, o, lse, do,
@@ -533,22 +627,25 @@ def phase_flash_kernels(torch, fk):
                                          rounded, ref):
                     a, b = a.float(), b.float()
                     r = r.to(torch.bfloat16).float()
-                    for key, x, y in (("kernel vs autograd", a, b),
-                                      ("rounded plain vs autograd", r, b),
-                                      ("kernel vs rounded plain", a, r)):
-                        gap = worst_gap(torch, x, y) + (f"{label} {name}",)
-                        if gap[0] > bf16_gap[key][0]:
-                            bf16_gap[key] = gap
+                    rounded_check("backward", label, name, a, r)
+                    where = f"{label} {name}"
+                    track("backward kernel vs autograd", a, b, where)
+                    track("backward rounded plain vs autograd", r, b, where)
+                    track("backward kernel vs rounded plain", a, r, where)
                 del rounded
             del ref, qkv
-        say("kernels", f"flash forward + backward ok (backward bit-equal "
-            f"over two runs): {label}")
+        say("kernels", f"flash forward + backward ok (each bit-equal over "
+            f"two runs): {label}")
     for name, err in worst.items():
         say("kernels", f"{name} max|err| float32 {err['float32']:.3e}, "
             f"bfloat16 {err['bfloat16']:.3e}")
     for key, (gap, ref, ulps, where) in bf16_gap.items():
-        say("kernels", f"flash backward bfloat16 worst gap, {key}: {gap:.4e}"
-            f" at |ref| {ref:.4e} = {ulps:.2f} ulp ({where})")
+        say("kernels", f"flash bfloat16 worst gap, {key}: {gap:.4e} at |ref| "
+            f"{ref:.4e} = {ulps:.2f} ulp of the element ({where})")
+    for key, (ulps, gap, top, where) in head_gap.items():
+        say("kernels", f"flash bfloat16 {key}, kernel vs rounded plain: at "
+            f"most {ulps:.2f} ulp of the head's largest value ({gap:.4e} at "
+            f"head max {top:.4e}, {where}; checked <= 1)")
     return worst
 
 
@@ -614,7 +711,102 @@ def phase_bag_kernels(torch, bk):
 
 
 # --------------------------------------------------------------------------
-# phases 4 and 6: the main paths
+# phase 4: the CLIs with their defaults
+# --------------------------------------------------------------------------
+
+#: (label, module, arguments): each CLI as a user starts it, with its
+#: defaults: reduced llama3.2-1b (head dim 32) on the card
+CLI_RUNS = (("serve", "repro_torch.launch.serve", []),
+            ("serve --continuous", "repro_torch.launch.serve",
+             ["--continuous"]),
+            ("train", "repro_torch.launch.train", []))
+
+
+def cli_json(text):
+    """The JSON summary a CLI prints last (the train CLI logs steps first)."""
+    return json.loads(text[text.index("{"):])
+
+
+def check_cli_summary(label, out):
+    """What each CLI's JSON summary must show: the card, finite results,
+    every request served or every step taken."""
+    if label == "train":
+        check(out["devices"] == ["cuda:0"] and out["steps"] == 50
+              and all(math.isfinite(x) for x in out["losses"]),
+              f"{label} CLI: steps {out['steps']}, devices {out['devices']}"
+              f", losses {out['first_loss']} .. {out['last_loss']}")
+        return f"50 steps, loss {out['first_loss']:.4f} -> {out['last_loss']:.4f}"
+    check(out["device"].startswith("cuda") and out["tokens_in_vocab"],
+          f"{label} CLI: device {out['device']}, tokens in vocab "
+          f"{out['tokens_in_vocab']}")
+    if label == "serve":
+        check(out["generated_shape"] == [4, 16], f"{label} CLI: generated "
+              f"{out['generated_shape']}")
+        return f"4 x 16 tokens, {out['decode_tok_per_s']:.1f} decode tok/s"
+    check(set(out["outcomes"]) == {"completed"} and out["pool_conserved"],
+          f"{label} CLI: outcomes {out['outcome_counts']}, pool conserved "
+          f"{out['pool_conserved']}")
+    return (f"{out['requests']} requests completed, {out['prefills']} "
+            f"prefills, {out['decode_steps']} decode steps")
+
+
+def phase_cli(torch, counters):
+    """``python -m repro_torch.launch.serve``, ``... serve --continuous``
+    and ``python -m repro_torch.launch.train`` with their defaults as
+    subprocesses on the card (exit code 0 and the JSON summary each
+    prints), then the same three through their ``main`` in this process
+    with every launch count set to 0 just before each and read just after:
+    every prefill runs the flash forward once a layer, a train step twice
+    a layer (forward and remat recompute) and each backward pass once."""
+    import contextlib
+    import io
+    import os
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
+
+    layers = get_config("llama3.2-1b", reduced=True).num_layers
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    by_run = {}
+    for label, module, args in CLI_RUNS:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", module, *args], cwd=ROOT,
+                              env=env, capture_output=True, text=True,
+                              timeout=300)
+        check(proc.returncode == 0, f"{label} CLI exited {proc.returncode}:"
+              f"\n{proc.stderr[-3000:]}")
+        what = check_cli_summary(label, cli_json(proc.stdout))
+        say("cli", f"python -m {module} {' '.join(args)}: exit 0 in "
+            f"{time.perf_counter() - t0:.1f} s; {what}")
+
+        main = (train_cli if label == "train" else serve_cli).main
+        for fn in counters.values():
+            fn.launches = 0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            main(list(args))
+        launches = {name: fn.launches for name, fn in counters.items()}
+        out = cli_json(buf.getvalue())
+        check_cli_summary(label, out)
+        want = {  # serve prefills its batch once and decodes densely
+            "serve": {"flash_fwd": layers},
+            "serve --continuous": {
+                "flash_fwd": layers * out.get("prefills", 0),
+                "paged_decode": layers * out.get("decode_steps", 0)},
+            "train": {"flash_fwd": 2 * layers * 50,
+                      "flash_bwd_dkdv": layers * 50,
+                      "flash_bwd_dq": layers * 50}}[label]
+        check(all(launches[k] == want.get(k, 0) for k in counters),
+              f"{label} CLI in-process: launches {launches}, expected {want}")
+        say("cli", f"{label} in-process, launches {launches}")
+        by_run[f"cli {label}"] = launches
+    return by_run
+
+
+# --------------------------------------------------------------------------
+# phases 5 and 7: the main paths
 # --------------------------------------------------------------------------
 
 REQUESTS = [(64, 32), (512, 32), (128, 32), (300, 32), (96, 32), (448, 32),
@@ -802,7 +994,7 @@ def phase_moe(torch, counters):
 
 
 # --------------------------------------------------------------------------
-# phase 5: where a decode step's time goes
+# phase 6: where a decode step's time goes
 # --------------------------------------------------------------------------
 
 #: kernel-name fragments of the profile's device-time split, checked in
@@ -875,7 +1067,7 @@ def phase_profile(torch, state, label: str, steps: int = 8):
 
 
 # --------------------------------------------------------------------------
-# phases 7-9: training
+# phases 8-10: training
 # --------------------------------------------------------------------------
 
 #: llama3.2-1b's training run: steps, batch, sequence, microbatch
@@ -1056,7 +1248,7 @@ def phase_train_profile(torch):
 
 
 # --------------------------------------------------------------------------
-# phase 10: CTR training over the parameter server
+# phase 11: CTR training over the parameter server
 # --------------------------------------------------------------------------
 
 #: the CTR runs: steps of the main-path runs (re-pins at 50, 100, 150),
@@ -1194,7 +1386,7 @@ def phase_ctr(torch, bk):
 
 
 # --------------------------------------------------------------------------
-# phase 7: timing at the serve shapes
+# phase 12: timing at the serve shapes
 # --------------------------------------------------------------------------
 
 
@@ -1599,31 +1791,33 @@ def main() -> int:
     flash_worst = phase_flash_kernels(torch, fk)
     bag_worst = phase_bag_kernels(torch, bk)
 
-    # 4.-5. llama3.2-1b, then its state is freed before olmoe's 27.7 GB
+    # 4. the CLIs with their defaults (reduced llama3.2-1b, head dim 32)
+    cli_launches = phase_cli(torch, counters)
+
+    # 5.-6. llama3.2-1b, then its state is freed before olmoe's 27.7 GB
     llama_launches, state = phase_serve(torch, counters)
     phase_profile(torch, state, "llama3.2-1b")
     del state
     torch.cuda.empty_cache()
 
-    # 6. olmoe-1b-7b
+    # 7. olmoe-1b-7b
     moe_launches, state = phase_moe(torch, counters)
     phase_profile(torch, state, "olmoe-1b-7b")
     del state
     torch.cuda.empty_cache()
 
-    # 7.-9. training: the main path of this slice, the teacher checks and
-    # a profiled step
+    # 8.-10. training: the teacher checks and a profiled step
     train_launches, _, _ = phase_train(torch, counters)
     torch.cuda.empty_cache()
     teacher = phase_teacher(torch, counters)
     phase_train_profile(torch)
     torch.cuda.empty_cache()
 
-    # 10. CTR training over the parameter server
+    # 11. CTR training over the parameter server
     ctr = phase_ctr(torch, bk)
     torch.cuda.empty_cache()
 
-    # 11. timing
+    # 12. timing
     timing = phase_timing(torch, pk)
     moe_timing = phase_moe_timing(torch, mk)
     flash_timing = phase_flash_timing(torch, fk)
@@ -1633,7 +1827,8 @@ def main() -> int:
              ("olmoe-1b-7b serve", moe_launches),
              ("llama3.2-1b train", train_launches),
              ("olmoe-1b-7b 2-layer train check",
-              teacher["olmoe-1b-7b"]["launches"]))
+              teacher["olmoe-1b-7b"]["launches"]),
+             *cli_launches.items())
     by_path = {k: {p: n[k] for p, n in paths if n.get(k)} for k in counters}
     kernels = [{
         "name": "paged_decode", "route": "cuda",

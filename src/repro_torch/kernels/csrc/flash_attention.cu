@@ -36,54 +36,64 @@
 //   flash_bwd_dq:   one block per query tile loops over its key tiles:
 //                   dQ += scale * dS k.
 //
-// What bounds it: operations.  The backward needs 5 products of 2*hd flops
-// per visible (query, key) pair (the two passes run 7: the dQ pass scores
-// S and dP again) on 4 * B*H*S*hd elements a tensor; at
-// S = 2048 that is thousands of flops per byte, far above the card's
-// balance, so the least time is the flops over the tensor cores' rate:
-// 989 TFLOP/s in bf16, and 495/3 TFLOP/s for f32-accurate products in the
-// 3xTF32 split below (the f32 CUDA cores give only 67).
+// What bounds it: operations.  The forward needs 2 products of 2*hd flops
+// per visible (query, key) pair (S = Q K^T and P V), the backward 5 (the
+// two passes run 7: the dQ pass scores S and dP again), on 4 * B*H*S*hd
+// elements; at S = 2048 that is hundreds to thousands of flops per byte,
+// above the card's balance, so the least time is the flops over the tensor
+// cores' rate: 989 TFLOP/s in bf16, and 495/3 TFLOP/s for f32-accurate
+// products in the 3xTF32 split below (the f32 CUDA cores give only 67).
 //
-// Design of the backward:
+// Design, both directions:
 //  * every product runs on the tensor cores through per-warp `mma.sync`
 //    fragments: m16n8k16 bf16 with f32 accumulators; for f32 inputs
 //    m16n8k8 TF32 in the 3xTF32 split (x = hi + lo, hi = x rounded to
 //    TF32, lo = x - hi, of which the tensor cores read TF32's bits;
 //    acc += lo*hi + hi*lo + hi*hi), which keeps f32-level accuracy;
-//  * a block owns ROWS = 16 * WM rows (keys in the dK/dV pass, queries in
-//    the dQ pass) and streams tiles of the other side; warp (wm, wn) owns 16
-//    of the rows and HD / WN output columns (WN > 1 at hd 128 and 256, where
-//    one warp's accumulators for the whole head would not fit in registers;
-//    those warps repeat the two score products of their rows);
-//  * the score fragments (S and dP) stay in registers, and so do p and dS:
-//    the accumulator layout of a score tile is the A-operand layout of the
+//  * a block owns ROWS = 16 * WM rows and streams tiles of the other side;
+//    warp (wm, wn) owns 16 of the rows and HD / WN output columns (WN > 1
+//    where one warp's accumulators for the whole head would not fit in
+//    registers; those warps repeat the score products of their rows);
+//  * the score fragments stay in registers, and so do p and dS: the
+//    accumulator layout of a score tile is the A-operand layout of the
 //    next product (bf16: two n-tiles make one k16 step; TF32: one n-tile
 //    is one k8 step whose k order is permuted, 2t -> t and 2t+1 -> t+4,
 //    and the B operand is read in the same order), so neither reaches
-//    shared or device memory.  bf16 takes a tile in two halves of its
-//    columns, each scored, packed to bf16 and accumulated before the
-//    next, so fewer registers are live and more blocks fit an SM;
+//    shared or device memory;
 //  * elements of a tile that is wholly visible (no mask, no soft cap, no
-//    missing row or key) take a short path: p = 2^(s * scale * log2(e) -
-//    lse * log2(e)) in one ex2.approx, dS = p (dP - D);
+//    missing key) take a short path: the exponent is one FMA of the raw
+//    dot product (scale * log2(e) folded in) and one ex2.approx;
 //  * f32 operands are split by integer ops on the bits, not by
-//    cvt.rna.tf32 (a slow conversion);
+//    cvt.rna.tf32 (a slow conversion), and each tile's f32 products are
+//    summed in a fresh accumulator added with one rounded add (the tensor
+//    cores' f32 adds do not round to nearest);
 //  * tiles are staged in shared memory in their own type, rows padded by
 //    16 bytes so that `ldmatrix` (bf16) and the 32-bit fragment loads (f32)
-//    hit distinct banks; the streamed tiles (q, dO, lse and D in the dK/dV
-//    pass; k and v in the dQ pass) are double-buffered with `cp.async`, so
-//    the next tile's load overlaps the current tile's products;
+//    hit distinct banks; the streamed tiles are double-buffered with
+//    `cp.async`, so the next tile's load overlaps the current tile's
+//    products;
 //  * causal tiles are scheduled heaviest first across all heads: the grid
-//    is (B*H, tiles), so every head's heaviest tile (key tile 0 of the
-//    dK/dV pass, the last query tile of the dQ pass) starts in the first
-//    wave and none is left for the tail.
+//    is (B*H, tiles), so every head's heaviest tile (the last query tile
+//    of the forward and the dQ pass, key tile 0 of the dK/dV pass) starts
+//    in the first wave and none is left for the tail.
 //
-// The forward still runs its products on the CUDA cores in f32 (bf16 inputs
-// widened on load): a 16 x 16 thread layout over f32 tiles of 64 rows (32
-// at hd 256), rows padded to hd + 4 floats, the row statistics reduced
-// over half-warps with shuffles.  Moving it onto the tensor cores with the
-// backward's fragments, `wgmma` with a TMA producer warp, and GQA without
-// expanded heads are later work.
+// The forward: one block per (bh, query tile) loops over its key tiles with
+// an online softmax on the score fragments (running max and sum in log2
+// units; each row's 4 owning lanes reduce the tile's max with two shuffles;
+// the sum stays per lane until the end).  bf16 holds the warp's Q rows as A
+// fragments, loaded once, and rounds p to bf16 for P V (the TPU kernel
+// forms P V in f32); f32 reads Q from its tile and splits it at each k
+// step (hi and lo of a whole row would take HD registers).
+//
+// Backward specifics: the dK/dV pass computes S^T = K Q^T and dP^T = V dO^T
+// (keys as rows), so p^T and dS^T are already the A operands of dV += p^T
+// dO and dK += dS^T Q; bf16 takes a tile in two halves of its columns,
+// each scored, packed to bf16 and accumulated before the next, so fewer
+// registers are live and more blocks fit an SM; the visible-tile path is
+// p = 2^(s * scale * log2(e) - lse * log2(e)), dS = p (dP - D).
+//
+// `wgmma` with a TMA producer warp, and GQA without expanded heads, are
+// later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -94,6 +104,7 @@ namespace {
 
 constexpr float kMasked = -1e30f;  // the TPU kernel's NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kThreads = 256;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -103,89 +114,6 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
-}
-
-// Tile shapes per head dim: BM rows of the tile a block owns, BN rows of the
-// tile it streams (both 64, or 32 at hd 256 to fit shared memory).
-template <int HD>
-struct Tiles {
-  static constexpr int BM = HD >= 256 ? 32 : 64;
-  static constexpr int BN = BM;
-  static constexpr int SP = HD + 4;   // row stride of a (rows, hd) tile
-  static constexpr int PS = BN + 16;  // row stride of a score tile
-  static constexpr int RM = BM / 16;  // owned rows per thread
-  static constexpr int RN = BN / 16;  // streamed rows per thread
-  static constexpr int NC = HD / 64;  // float4 chunks of a row per thread
-};
-
-// Rows [row0, row0 + rows) of a (S, HD) matrix into a (rows, SP) f32 tile;
-// rows past S read zeros.
-template <typename T, int HD, int SP>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          int row0, int rows, int S) {
-  for (int idx = threadIdx.x; idx < rows * HD; idx += kThreads) {
-    const int r = idx / HD, d = idx - r * HD;
-    const int g = row0 + r;
-    dst[r * SP + d] = g < S ? to_f32(src[(long long)g * HD + d]) : 0.f;
-  }
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// acc[i][j] = sum_d A[(ty + 16 i)][d] * B[(tx + 16 j)][d] over one tile pair.
-template <int HD, int SP, int RA, int RB>
-__device__ __forceinline__ void tile_dot(const float* A, const float* B,
-                                         int ty, int tx, float (&acc)[RA][RB]) {
-#pragma unroll
-  for (int i = 0; i < RA; ++i)
-#pragma unroll
-    for (int j = 0; j < RB; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < HD; d += 4) {
-    float4 a[RA], b[RB];
-#pragma unroll
-    for (int i = 0; i < RA; ++i) a[i] = ld4(A + (ty + 16 * i) * SP + d);
-#pragma unroll
-    for (int j = 0; j < RB; ++j) b[j] = ld4(B + (tx + 16 * j) * SP + d);
-#pragma unroll
-    for (int i = 0; i < RA; ++i)
-#pragma unroll
-      for (int j = 0; j < RB; ++j) acc[i][j] = dot4(a[i], b[j], acc[i][j]);
-  }
-}
-
-// out[i][4c + e] += sum_k W[(ty + 16 i) * ws + k] * X[k * SP + 4 tx + 64 c + e]
-// for k < K: the (rows, K) weight tile W times the (K, HD) tile X.
-template <int HD, int SP, int R, int NC>
-__device__ __forceinline__ void tile_acc(const float* W, int ws, const float* X,
-                                         int K, int ty, int tx,
-                                         float (&out)[R][4 * NC]) {
-#pragma unroll 2
-  for (int k = 0; k < K; ++k) {
-    float w[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) w[i] = W[(ty + 16 * i) * ws + k];
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const float4 x = ld4(X + k * SP + 4 * tx + 64 * c);
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        out[i][4 * c + 0] = fmaf(w[i], x.x, out[i][4 * c + 0]);
-        out[i][4 * c + 1] = fmaf(w[i], x.y, out[i][4 * c + 1]);
-        out[i][4 * c + 2] = fmaf(w[i], x.z, out[i][4 * c + 2]);
-        out[i][4 * c + 3] = fmaf(w[i], x.w, out[i][4 * c + 3]);
-      }
-    }
-  }
 }
 
 // The logit of query r and key c from the raw dot product: scaled,
@@ -201,20 +129,6 @@ __device__ __forceinline__ float logit(float dot, int r, int c, int Sk,
   if (window > 0) ok = ok && (r - c) < window;
   if (!ok) x = kMasked;
   return c < Sk ? x : -INFINITY;
-}
-
-// Sum / max over the 16 lanes of a half-warp (one row's threads).
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
 }
 
 // The key tiles [k_begin, k_end) that rows [q0, q0 + rows) must visit: all
@@ -233,159 +147,7 @@ __device__ __forceinline__ void key_span(int q0, int rows, int Sk, int causal,
   k_begin = (k_lo / BN) * BN;
 }
 
-// ------------------------------------------------------------------ forward
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int causal,
-    int window, float softcap, float scale) {
-  using L = Tiles<HD>;
-  constexpr int BM = L::BM, BN = L::BN, SP = L::SP, PS = L::PS;
-  constexpr int RM = L::RM, RN = L::RN, NC = L::NC;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BM * SP;
-  float* Vs = Ks + BN * SP;
-  float* Ps = Vs + BN * SP;
-
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int q0 = qt * BM;
-  const long long bh = blockIdx.y;
-  const T* qg = q + bh * Sq * HD;
-  const T* kg = k + bh * Sk * HD;
-  const T* vg = v + bh * Sk * HD;
-
-  load_tile<T, HD, SP>(Qs, qg, q0, BM, Sq);
-  int k_begin, k_end;
-  key_span<BN>(q0, min(BM, Sq - q0), Sk, causal, window, k_begin, k_end);
-
-  float m[RM], l[RM], acc[RM][4 * NC];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    m[i] = kMasked;
-    l[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < 4 * NC; ++e) acc[i][e] = 0.f;
-  }
-
-  for (int k0 = k_begin; k0 < k_end; k0 += BN) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<T, HD, SP>(Ks, kg, k0, BN, Sk);
-    load_tile<T, HD, SP>(Vs, vg, k0, BN, Sk);
-    __syncthreads();
-    float s[RM][RN];
-    tile_dot<HD, SP, RM, RN>(Qs, Ks, ty, tx, s);
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int r = q0 + ty + 16 * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        s[i][j] = logit(s[i][j], r, k0 + tx + 16 * j, Sk, causal, window,
-                        scale, softcap);
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sum += p;
-        Ps[(ty + 16 * i) * PS + tx + 16 * j] = p;
-      }
-      l[i] = l[i] * alpha + row_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int e = 0; e < 4 * NC; ++e) acc[i][e] *= alpha;
-    }
-    __syncthreads();
-    tile_acc<HD, SP, RM, NC>(Ps, PS, Vs, BN, ty, tx, acc);
-  }
-
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= Sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-    T* orow = o + (bh * Sq + r) * HD;
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        store(&orow[4 * tx + 64 * c + e], acc[i][4 * c + e] / denom);
-    if (tx == 0) lse[bh * Sq + r] = m[i] + logf(l[i]);
-  }
-}
-
-// ----------------------------------------------------------------- backward
-
-// D[row] = sum_d dO[row, d] * o[row, d], one warp per row.
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) delta_kernel(
-    const T* __restrict__ o, const T* __restrict__ dout,
-    float* __restrict__ delta, long long rows) {
-  const long long row = (long long)blockIdx.x * (kThreads / 32) +
-                        (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const int lane = threadIdx.x & 31;
-  float acc = 0.f;
-  for (int d = lane; d < HD; d += 32)
-    acc = fmaf(to_f32(dout[row * HD + d]), to_f32(o[row * HD + d]), acc);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) delta[row] = acc;
-}
-
-// p = exp(x - lse) and dS = p * (dP - D) * softcap'(u) for one entry of
-// logit x.  A masked or missing key has dS = 0 exactly (its logit has no
-// tanh to differentiate) and p = 0, except a masked key of a row that sees
-// no key (lse = -1e30 + log Sk, which rounds to -1e30): its weight is 1/Sk.
-__device__ __forceinline__ void grad_entry(float x, float dp, float lse_r,
-                                           float d_r, float softcap,
-                                           float inv_sk, float& p, float& ds) {
-  if (x <= kMasked) {
-    p = x == kMasked && lse_r <= 0.5f * kMasked ? inv_sk : 0.f;
-    ds = 0.f;
-    return;
-  }
-  p = expf(x - lse_r);
-  ds = p * (dp - d_r);
-  if (softcap > 0.f) {
-    const float t = x / softcap;  // tanh(u / cap) of an unmasked logit
-    ds *= 1.f - t * t;
-  }
-}
-
-// --------------------------------------------- backward: tensor-core tiles
-
-// Per head dim: WM x WN warps; a block owns ROWS = 16 * WM rows and streams
-// tiles of COLS = ROWS rows; warp (wm, wn) owns rows 16 wm .. 16 wm + 15 and
-// output columns DW wn .. DW wn + DW - 1.  Shared memory holds six (COLS,
-// HD) tiles: the block's own two and two stages of the two streamed ones.
-template <typename T, int HD>
-struct Bwd {
-  static constexpr int WM = HD >= 256 ? 2 : 4;
-  static constexpr int WN = HD / 64;
-  static constexpr int THREADS = 32 * WM * WN;
-  static constexpr int ROWS = 16 * WM;
-  static constexpr int COLS = ROWS;
-  static constexpr int NT = COLS / 8;         // score n-tiles of a warp
-  static constexpr int DW = HD / WN;
-  static constexpr int DT = DW / 8;           // output n-tiles of a warp
-  static constexpr int RS = HD + 16 / (int)sizeof(T);  // padded row stride
-  static constexpr int TILE = COLS * RS;      // elements of one tile
-  static constexpr size_t SMEM =
-      6 * TILE * sizeof(T) + 4 * COLS * sizeof(float);
-  // blocks an SM should hold (registers are capped to fit them); bf16 at
-  // hd 64 has the shared memory for 3 dK/dV or 4 dQ blocks
-  static constexpr bool SMALL = sizeof(T) == 2 && HD == 64;
-  static constexpr int DKDV_BLOCKS = SMALL ? 3 : 1;
-  static constexpr int DQ_BLOCKS = SMALL ? 4 : 1;
-};
+// ------------------------------------------------------ tensor-core tiles
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool pred) {
@@ -407,12 +169,12 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Rows [row0, row0 + COLS) of a (S, HD) matrix into a (COLS, RS) tile in
-// 16-byte copies; rows past S are zero-filled.
-template <typename T, int HD>
+// Rows [row0, row0 + C::COLS) of a (S, HD) matrix into a (C::COLS, C::RS)
+// tile in 16-byte copies by C::THREADS threads; rows past S are
+// zero-filled.  C is the kernel's tile shape (Fwd or Bwd).
+template <typename T, int HD, class C>
 __device__ __forceinline__ void async_tile(T* dst, const T* __restrict__ src,
                                            int row0, int S) {
-  using C = Bwd<T, HD>;
   constexpr int EPC = 16 / sizeof(T), CH = HD / EPC;
   for (int i = threadIdx.x; i < C::COLS * CH; i += C::THREADS) {
     const int r = i / CH, c = i - r * CH, g = row0 + r;
@@ -506,9 +268,9 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
       : "r"(s));
 }
 
-// s += A1 B1^T and dp += A2 B2^T over d in [k_begin, k_end), f32 in the
-// 3xTF32 split (the layout of warp_scores).
-template <int RS, int NT>
+// s += A1 B1^T and, when NP = 2, dp += A2 B2^T over d in [k_begin,
+// k_end), f32 in the 3xTF32 split (the layout of warp_scores).
+template <int RS, int NT, int NP>
 __device__ __forceinline__ void tf32_scores(const float* A1, const float* B1,
                                             const float* A2, const float* B2,
                                             int k_begin, int k_end, int lane,
@@ -519,15 +281,17 @@ __device__ __forceinline__ void tf32_scores(const float* A1, const float* B1,
   for (int k0 = k_begin; k0 < k_end; k0 += 8) {
     uint32_t a1h[4], a1l[4], a2h[4], a2l[4];
     const float* p1 = A1 + g * RS + k0 + t;
-    const float* p2 = A2 + g * RS + k0 + t;
     split(p1[0], a1h[0], a1l[0]);
     split(p1[8 * RS], a1h[1], a1l[1]);
     split(p1[4], a1h[2], a1l[2]);
     split(p1[8 * RS + 4], a1h[3], a1l[3]);
-    split(p2[0], a2h[0], a2l[0]);
-    split(p2[8 * RS], a2h[1], a2l[1]);
-    split(p2[4], a2h[2], a2l[2]);
-    split(p2[8 * RS + 4], a2h[3], a2l[3]);
+    if constexpr (NP == 2) {
+      const float* p2 = A2 + g * RS + k0 + t;
+      split(p2[0], a2h[0], a2l[0]);
+      split(p2[8 * RS], a2h[1], a2l[1]);
+      split(p2[4], a2h[2], a2l[2]);
+      split(p2[8 * RS + 4], a2h[3], a2l[3]);
+    }
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       uint32_t bh[2], bl[2];
@@ -535,10 +299,12 @@ __device__ __forceinline__ void tf32_scores(const float* A1, const float* B1,
       split(q1[0], bh[0], bl[0]);
       split(q1[4], bh[1], bl[1]);
       mma3(s[j], a1h, a1l, bh, bl);
-      const float* q2 = B2 + (8 * j + g) * RS + k0 + t;
-      split(q2[0], bh[0], bl[0]);
-      split(q2[4], bh[1], bl[1]);
-      mma3(dp[j], a2h, a2l, bh, bl);
+      if constexpr (NP == 2) {
+        const float* q2 = B2 + (8 * j + g) * RS + k0 + t;
+        split(q2[0], bh[0], bl[0]);
+        split(q2[4], bh[1], bl[1]);
+        mma3(dp[j], a2h, a2l, bh, bl);
+      }
     }
   }
 }
@@ -547,18 +313,23 @@ __device__ __forceinline__ void tf32_scores(const float* A1, const float* B1,
 // rows, B1, B2 at the COLS streamed rows, all (rows, HD) tiles of row
 // stride RS; the sum runs over HD.  Fragment layout (g = lane / 4,
 // t = lane % 4): s[j][e] is row g + 8 (e / 2), column 8 j + 2 t + e % 2.
-template <typename T, int HD, int RS, int NT>
+// NP = 1 (f32 only) forms s alone; A2, B2 and dp are not touched.
+template <typename T, int HD, int RS, int NT, int NP = 2>
 __device__ __forceinline__ void warp_scores(const T* A1, const T* B1,
                                             const T* A2, const T* B2,
                                             int lane, float (&s)[NT][4],
                                             float (&dp)[NT][4]) {
+  static_assert(NP == 2 || sizeof(T) == 4, "one product: f32 only");
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = 0.f;
+      if constexpr (NP == 2) dp[j][e] = 0.f;
+    }
   if constexpr (sizeof(T) == 4) {
     if constexpr (HD <= 128) {
-      tf32_scores<RS, NT>(A1, B1, A2, B2, 0, HD, lane, s, dp);
+      tf32_scores<RS, NT, NP>(A1, B1, A2, B2, 0, HD, lane, s, dp);
     } else {
       // 64-wide chunks of d, each summed in fresh accumulators and added
       // with one rounded add (see warp_accum_tf32)
@@ -569,13 +340,13 @@ __device__ __forceinline__ void warp_scores(const T* A1, const T* B1,
         for (int j = 0; j < NT; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) cs[j][e] = cdp[j][e] = 0.f;
-        tf32_scores<RS, NT>(A1, B1, A2, B2, c0, c0 + 64, lane, cs, cdp);
+        tf32_scores<RS, NT, NP>(A1, B1, A2, B2, c0, c0 + 64, lane, cs, cdp);
 #pragma unroll
         for (int j = 0; j < NT; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             s[j][e] += cs[j][e];
-            dp[j][e] += cdp[j][e];
+            if constexpr (NP == 2) dp[j][e] += cdp[j][e];
           }
       }
     }
@@ -685,6 +456,290 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
+// Writes a warp's (16, DT * 8) accumulator times mul into rows row0 ..
+// row0 + 15 (those below S) and columns col0 .. of a (S, HD) matrix.
+template <typename T, int HD, int DT>
+__device__ __forceinline__ void store_acc(T* __restrict__ dst,
+                                          const float (&acc)[DT][4], int row0,
+                                          int col0, int S, float mul,
+                                          int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + g + 8 * h;
+    if (r >= S) continue;
+    T* row = dst + (long long)r * HD + col0 + 2 * t;
+#pragma unroll
+    for (int n = 0; n < DT; ++n) {
+      store(row + 8 * n, acc[n][2 * h] * mul);
+      store(row + 8 * n + 1, acc[n][2 * h + 1] * mul);
+    }
+  }
+}
+
+// ------------------------------------------------------------------ forward
+
+// Per head dim: WM x WN warps; a block owns ROWS = 16 * WM query rows and
+// streams key tiles of COLS = ROWS rows; warp (wm, wn) scores rows 16 wm ..
+// 16 wm + 15 against the whole key tile and accumulates output columns
+// DW wn .. DW wn + DW - 1 (WN = 2 only at hd 256).  Shared memory holds the
+// Q tile and two stages of the K and V tiles.
+template <typename T, int HD>
+struct Fwd {
+  static constexpr int WM = HD >= 256 ? 2 : 4;
+  static constexpr int WN = HD >= 256 ? 2 : 1;
+  static constexpr int THREADS = 32 * WM * WN;
+  static constexpr int ROWS = 16 * WM;
+  static constexpr int COLS = ROWS;
+  static constexpr int NT = COLS / 8;         // score n-tiles of a warp
+  static constexpr int DW = HD / WN;
+  static constexpr int DT = DW / 8;           // output n-tiles of a warp
+  static constexpr int RS = HD + 16 / (int)sizeof(T);  // padded row stride
+  static constexpr int TILE = COLS * RS;      // elements of one tile
+  static constexpr size_t SMEM = 5 * TILE * sizeof(T);
+  // blocks an SM should hold (registers are capped to fit them): at hd
+  // <= 64, bf16 has the shared memory for 4 and f32 for 2
+  static constexpr int BLOCKS = HD > 64 ? 1 : sizeof(T) == 2 ? 4 : 2;
+};
+
+// s = Q K^T for one warp of the forward: its 16 query rows against the
+// 8 NT rows of the key tile Kt, summed over HD.  bf16 takes A from the
+// warp's Q fragments qa; f32 from its rows of the Q tile, Qw.
+template <typename T, int HD, int RS, int NT>
+__device__ __forceinline__ void fwd_scores(const uint32_t (*qa)[4],
+                                           const T* Qw, const T* Kt,
+                                           int lane, float (&s)[NT][4]) {
+  if constexpr (sizeof(T) == 4) {
+    warp_scores<T, HD, RS, NT, 1>(Qw, Kt, nullptr, nullptr, lane, s, s);
+  } else {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    const int mi = lane >> 3;
+    const int br = (lane & 7) + ((mi >> 1) << 3), bc = (mi & 1) * 8;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        uint32_t b[4];
+        ldsm_x4(b, Kt + (8 * j + br) * RS + 16 * kk + bc);
+        mma_bf16(s[j], qa[kk], b[0], b[1]);
+        mma_bf16(s[j + 1], qa[kk], b[2], b[3]);
+      }
+  }
+}
+
+// One block per (bh, query tile): o and lse of ROWS queries, looping over
+// their key tiles with an online softmax.
+template <typename T, int HD>
+__global__ void __launch_bounds__((Fwd<T, HD>::THREADS),
+                                  (Fwd<T, HD>::BLOCKS)) fwd_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int causal,
+    int window, float softcap, float scale) {
+  using C = Fwd<T, HD>;
+  constexpr int RS = C::RS, TILE = C::TILE, COLS = C::COLS, NT = C::NT;
+  constexpr int DT = C::DT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* Ss = Qs + TILE;  // buffer b: k at Ss + 2 b TILE, v one TILE further
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp % C::WM, wn = warp / C::WM;
+  const int g = lane >> 2, t = lane & 3;
+  // query tiles along y, the last (the heaviest when causal) first for
+  // all heads
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * C::ROWS, r0 = q0 + wm * 16;
+  const long long bh = blockIdx.x;
+  const T* kg = k + bh * Sk * HD;
+  const T* vg = v + bh * Sk * HD;
+  async_tile<T, HD, C>(Qs, q + bh * Sq * HD, q0, Sq);
+  cp_async_commit();  // Q in a group of its own, ahead of the ring's
+
+  int k_begin, k_end;
+  key_span<COLS>(q0, min(C::ROWS, Sq - q0), Sk, causal, window, k_begin,
+                 k_end);
+  const int n_tiles = (k_end - k_begin + COLS - 1) / COLS;
+  // tiles with no mask, no soft cap and no missing key take a short path
+  const bool plain = softcap <= 0.f && window <= 0;
+  const float scale_log2 = scale * kLog2e;
+
+  auto stage = [&](int i) {
+    T* dst = Ss + (i & 1) * 2 * TILE;
+    async_tile<T, HD, C>(dst, kg, k_begin + i * COLS, Sk);
+    async_tile<T, HD, C>(dst + TILE, vg, k_begin + i * COLS, Sk);
+  };
+  ring_start(n_tiles, stage);
+
+  const T* Qw = Qs + wm * 16 * RS;
+  uint32_t qa[sizeof(T) == 2 ? HD / 16 : 1][4];
+  if constexpr (sizeof(T) == 2) {
+    cp_async_wait<1>();  // the Q tile's group (tile 0's may be in flight)
+    __syncthreads();
+    const int ar = lane & 15, ac = (lane >> 4) * 8;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      ldsm_x4(qa[kk], Qw + ar * RS + 16 * kk + ac);
+  }
+
+  // rows r0 + g (h = 0) and r0 + g + 8 (h = 1): the running max in log2
+  // units (-inf until the first tile: a row that sees no key then holds
+  // the masked logit and weighs every key 1), this lane's share of the
+  // running sum, and the output columns DW wn ..
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    ring_next(i, n_tiles, stage);
+    const T* Kt = Ss + (i & 1) * 2 * TILE;
+    const T* Vt = Kt + TILE;
+    const int kb = k_begin + i * COLS;
+    const bool full =
+        plain && kb + COLS <= Sk && (!causal || r0 >= kb + COLS - 1);
+    float s[NT][4];
+    fwd_scores<T, HD, RS, NT>(qa, Qw, Kt, lane, s);
+    // s * mul is the logit in log2 units: a visible tile keeps the raw
+    // dot products and folds scale * log2(e) into the exponent's FMA
+    const float mul = full ? scale_log2 : 1.f;
+    if (!full) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = kLog2e * logit(s[j][e], r0 + g + 8 * (e >> 1),
+                                   kb + 8 * j + 2 * t + (e & 1), Sk, causal,
+                                   window, scale, softcap);
+    }
+    float mx[2] = {-INFINITY, -INFINITY}, alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h] * mul);
+      alpha[h] = fast_exp2(m[h] - m_new);
+      m[h] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = fast_exp2(fmaf(s[j][e], mul, -m[e >> 1]));
+        s[j][e] = p;
+        sum[e >> 1] += p;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + sum[h];
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+    if constexpr (sizeof(T) == 2) {
+      uint32_t pa[NT / 2][4];
+      pack_a<NT>(s, pa);
+      warp_accum_bf16<RS, NT / 2, DT>(pa, Vt + wn * C::DW, lane, acc);
+    } else {
+      warp_accum_tf32<RS, NT, DT>(s, Vt + wn * C::DW, lane, acc);
+    }
+    ring_done();
+  }
+  cp_async_wait<0>();
+
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    inv[h] = 1.f / fmaxf(l[h], 1e-30f);
+  }
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] *= inv[e >> 1];
+  store_acc<T, HD, DT>(o + bh * Sq * HD, acc, r0, wn * C::DW, Sq, 1.f, lane);
+  if (wn == 0 && t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + g + 8 * h;
+      if (r < Sq) lse[bh * Sq + r] = (m[h] + log2f(l[h])) * kLn2;
+    }
+  }
+}
+
+// ----------------------------------------------------------------- backward
+
+// D[row] = sum_d dO[row, d] * o[row, d], one warp per row.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads) delta_kernel(
+    const T* __restrict__ o, const T* __restrict__ dout,
+    float* __restrict__ delta, long long rows) {
+  const long long row = (long long)blockIdx.x * (kThreads / 32) +
+                        (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int lane = threadIdx.x & 31;
+  float acc = 0.f;
+  for (int d = lane; d < HD; d += 32)
+    acc = fmaf(to_f32(dout[row * HD + d]), to_f32(o[row * HD + d]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) delta[row] = acc;
+}
+
+// p = exp(x - lse) and dS = p * (dP - D) * softcap'(u) for one entry of
+// logit x.  A masked or missing key has dS = 0 exactly (its logit has no
+// tanh to differentiate) and p = 0, except a masked key of a row that sees
+// no key (lse = -1e30 + log Sk, which rounds to -1e30): its weight is 1/Sk.
+__device__ __forceinline__ void grad_entry(float x, float dp, float lse_r,
+                                           float d_r, float softcap,
+                                           float inv_sk, float& p, float& ds) {
+  if (x <= kMasked) {
+    p = x == kMasked && lse_r <= 0.5f * kMasked ? inv_sk : 0.f;
+    ds = 0.f;
+    return;
+  }
+  p = expf(x - lse_r);
+  ds = p * (dp - d_r);
+  if (softcap > 0.f) {
+    const float t = x / softcap;  // tanh(u / cap) of an unmasked logit
+    ds *= 1.f - t * t;
+  }
+}
+
+// Per head dim: WM x WN warps; a block owns ROWS = 16 * WM rows and streams
+// tiles of COLS = ROWS rows; warp (wm, wn) owns rows 16 wm .. 16 wm + 15 and
+// output columns DW wn .. DW wn + DW - 1.  Shared memory holds six (COLS,
+// HD) tiles: the block's own two and two stages of the two streamed ones.
+template <typename T, int HD>
+struct Bwd {
+  static constexpr int WM = HD >= 256 ? 2 : 4;
+  static constexpr int WN = HD >= 128 ? HD / 64 : 1;
+  static constexpr int THREADS = 32 * WM * WN;
+  static constexpr int ROWS = 16 * WM;
+  static constexpr int COLS = ROWS;
+  static constexpr int NT = COLS / 8;         // score n-tiles of a warp
+  static constexpr int DW = HD / WN;
+  static constexpr int DT = DW / 8;           // output n-tiles of a warp
+  static constexpr int RS = HD + 16 / (int)sizeof(T);  // padded row stride
+  static constexpr int TILE = COLS * RS;      // elements of one tile
+  static constexpr size_t SMEM =
+      6 * TILE * sizeof(T) + 4 * COLS * sizeof(float);
+  // blocks an SM should hold (registers are capped to fit them); bf16 at
+  // hd <= 64 has the shared memory for 3 dK/dV or 4 dQ blocks
+  static constexpr bool SMALL = sizeof(T) == 2 && HD <= 64;
+  static constexpr int DKDV_BLOCKS = SMALL ? 3 : 1;
+  static constexpr int DQ_BLOCKS = SMALL ? 4 : 1;
+};
+
 // What the two passes share of a tile's element-wise step.
 struct Mask {
   int Sq, Sk, causal, window;
@@ -777,27 +832,6 @@ __device__ __forceinline__ void dq_part(
     }
 }
 
-// Writes a warp's (16, DT * 8) accumulator times mul into rows row0 ..
-// row0 + 15 (those below S) and columns col0 .. of a (S, HD) matrix.
-template <typename T, int HD, int DT>
-__device__ __forceinline__ void store_acc(T* __restrict__ dst,
-                                          const float (&acc)[DT][4], int row0,
-                                          int col0, int S, float mul,
-                                          int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = row0 + g + 8 * h;
-    if (r >= S) continue;
-    T* row = dst + (long long)r * HD + col0 + 2 * t;
-#pragma unroll
-    for (int n = 0; n < DT; ++n) {
-      store(row + 8 * n, acc[n][2 * h] * mul);
-      store(row + 8 * n + 1, acc[n][2 * h + 1] * mul);
-    }
-  }
-}
-
 // One block per (key tile, bh): dK and dV of ROWS keys, looping over the
 // query tiles that see them.
 template <typename T, int HD>
@@ -826,8 +860,8 @@ __global__ void __launch_bounds__((Bwd<T, HD>::THREADS),
   const T* dog = dout + bh * Sq * HD;
   const float* lseg = lse + bh * Sq;
   const float* dg = delta + bh * Sq;
-  async_tile<T, HD>(Ks, k + bh * Sk * HD, k0, Sk);
-  async_tile<T, HD>(Vs, v + bh * Sk * HD, k0, Sk);
+  async_tile<T, HD, C>(Ks, k + bh * Sk * HD, k0, Sk);
+  async_tile<T, HD, C>(Vs, v + bh * Sk * HD, k0, Sk);
 
   // query rows that see keys k0 .. k_last, and the rows r >= Sk + window - 1
   // that see no key (they weigh every key)
@@ -846,8 +880,8 @@ __global__ void __launch_bounds__((Bwd<T, HD>::THREADS),
     const int q0 = first + i * COLS;
     T* dst = Ss + (i & 1) * 2 * TILE;
     float* rdst = rows_s + (i & 1) * 2 * COLS;
-    async_tile<T, HD>(dst, qg, q0, Sq);
-    async_tile<T, HD>(dst + TILE, dog, q0, Sq);
+    async_tile<T, HD, C>(dst, qg, q0, Sq);
+    async_tile<T, HD, C>(dst + TILE, dog, q0, Sq);
     async_row(rdst, lseg, q0, COLS, Sq, C::THREADS);
     async_row(rdst + COLS, dg, q0, COLS, Sq, C::THREADS);
   };
@@ -930,8 +964,8 @@ __global__ void __launch_bounds__((Bwd<T, HD>::THREADS),
   const long long bh = blockIdx.x;
   const T* kg = k + bh * Sk * HD;
   const T* vg = v + bh * Sk * HD;
-  async_tile<T, HD>(Qs, q + bh * Sq * HD, q0, Sq);
-  async_tile<T, HD>(dOs, dout + bh * Sq * HD, q0, Sq);
+  async_tile<T, HD, C>(Qs, q + bh * Sq * HD, q0, Sq);
+  async_tile<T, HD, C>(dOs, dout + bh * Sq * HD, q0, Sq);
 
   float lse_r[2], d_r[2];
 #pragma unroll
@@ -953,8 +987,8 @@ __global__ void __launch_bounds__((Bwd<T, HD>::THREADS),
 
   auto stage = [&](int i) {
     T* dst = Ss + (i & 1) * 2 * TILE;
-    async_tile<T, HD>(dst, kg, k_begin + i * COLS, Sk);
-    async_tile<T, HD>(dst + TILE, vg, k_begin + i * COLS, Sk);
+    async_tile<T, HD, C>(dst, kg, k_begin + i * COLS, Sk);
+    async_tile<T, HD, C>(dst + TILE, vg, k_begin + i * COLS, Sk);
   };
   ring_start(n_tiles, stage);
 
@@ -1001,12 +1035,6 @@ __global__ void __launch_bounds__((Bwd<T, HD>::THREADS),
 
 // ------------------------------------------------------------------ launch
 
-template <int HD>
-constexpr size_t fwd_smem() {
-  using L = Tiles<HD>;
-  return sizeof(float) * ((L::BM + 2 * L::BN) * L::SP + L::BM * L::PS);
-}
-
 constexpr int kMaxDevices = 64;
 
 // Raises a kernel's dynamic shared-memory limit above the default 48 KiB,
@@ -1035,11 +1063,12 @@ struct Args {
 
 template <typename T, int HD>
 cudaError_t run_fwd(const Args& a, void* o, float* lse, cudaStream_t s) {
-  constexpr size_t smem = fwd_smem<HD>();
-  cudaError_t err = ensure_smem<fwd_kernel<T, HD>>(smem);
+  using C = Fwd<T, HD>;
+  cudaError_t err = ensure_smem<fwd_kernel<T, HD>>(C::SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Sq + Tiles<HD>::BM - 1) / Tiles<HD>::BM, a.BH);
-  fwd_kernel<T, HD><<<grid, kThreads, smem, s>>>(
+  const dim3 grid(a.BH, (a.Sq + C::ROWS - 1) / C::ROWS);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  fwd_kernel<T, HD><<<grid, C::THREADS, C::SMEM, s>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<T*>(o), lse, a.Sq, a.Sk,
       a.causal, a.window, a.softcap, a.scale);
@@ -1092,10 +1121,12 @@ bool valid(int BH, int Sq, int Sk) {
 #define FLASH_DISPATCH(FN, ...)                                         \
   do {                                                                  \
     if (dtype == 0) {                                                   \
+      if (hd == 32) return (int)FN<float, 32>(__VA_ARGS__);             \
       if (hd == 64) return (int)FN<float, 64>(__VA_ARGS__);             \
       if (hd == 128) return (int)FN<float, 128>(__VA_ARGS__);           \
       if (hd == 256) return (int)FN<float, 256>(__VA_ARGS__);           \
     } else if (dtype == 1) {                                            \
+      if (hd == 32) return (int)FN<__nv_bfloat16, 32>(__VA_ARGS__);     \
       if (hd == 64) return (int)FN<__nv_bfloat16, 64>(__VA_ARGS__);     \
       if (hd == 128) return (int)FN<__nv_bfloat16, 128>(__VA_ARGS__);   \
       if (hd == 256) return (int)FN<__nv_bfloat16, 256>(__VA_ARGS__);   \
@@ -1109,7 +1140,7 @@ extern "C" {
 
 // All return a cudaError_t (0 = launched).  q, o, dout: (BH, Sq, hd); k, v:
 // (BH, Sk, hd); all contiguous, one dtype (0 = float32, 1 = bfloat16), hd
-// 64, 128 or 256.  lse and delta: (BH, Sq) float32.  window <= 0 disables
+// 32, 64, 128 or 256.  lse and delta: (BH, Sq) float32.  window <= 0 disables
 // the sliding window, softcap <= 0 the soft cap.
 
 // o and lse from q, k, v.

@@ -64,7 +64,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
 # --------------------------------------------------------------------------
 
 #: head dims the kernels are built for
-KERNEL_HEAD_DIMS = (64, 128, 256)
+KERNEL_HEAD_DIMS = (32, 64, 128, 256)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FNS = None
 

@@ -6,7 +6,9 @@ import pytest
 
 from repro.configs import get_config as jget
 from repro.models import config as jconfig
-from repro_torch.configs import ARCH_IDS, get_config as tget
+from repro_torch.configs import _PENDING, ARCH_IDS, get_config as tget
+from repro_torch.kernels import flash_attention as flash_k
+from repro_torch.kernels import paged_attention as paged_k
 from repro_torch.models import config as tconfig
 
 
@@ -92,3 +94,15 @@ def test_validate_raises_on_bad_heads():
     c = dataclasses.replace(tget("llama3.2-1b", reduced=True), n_kv_heads=3)
     with pytest.raises(ValueError):
         c.validate()
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a not in _PENDING])
+def test_every_ported_head_dim_has_its_kernels(arch, reduced):
+    """Prefill and training attention on the card go through the flash
+    kernels and decode through paged decode, neither with a fallback: a
+    ported config whose head dim they are not built for would raise at
+    its first prefill or train step on the card."""
+    hd = tget(arch, reduced=reduced).head_dim
+    assert hd in flash_k.KERNEL_HEAD_DIMS
+    assert hd in paged_k.KERNEL_HEAD_DIMS

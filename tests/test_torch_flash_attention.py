@@ -47,7 +47,8 @@ def _jax(fn, q, k, v, dtype, **kw):
     return np.asarray(fn(*a, **kw), np.float32)
 
 
-#: (B, H, Sq, Sk, hd, kwargs): tests/test_kernels.py's flash sweep
+#: (B, H, Sq, Sk, hd, kwargs): tests/test_kernels.py's flash sweep and
+#: head dim 32
 SWEEP = [
     *[(B, H, S, S, hd, {"causal": True}) for B, H, S, hd in
       [(1, 1, 128, 64), (2, 2, 256, 64), (1, 2, 384, 128), (1, 1, 128, 256)]],
@@ -56,6 +57,9 @@ SWEEP = [
     (1, 1, 128, 128, 64, {"causal": True, "softcap": 50.0}),
     (2, 1, 128, 256, 64, {"causal": False}),
     (1, 2, 128, 384, 64, {"causal": False}),
+    # head dim 32: the reduced llama3.2-1b's shape, and with every mask
+    (2, 8, 128, 128, 32, {"causal": True}),
+    (1, 2, 256, 256, 32, {"causal": True, "window": 48, "softcap": 30.0}),
 ]
 IDS = [f"B{B}H{H}Sq{Sq}Sk{Sk}hd{hd}-" + "-".join(f"{k}{v}" for k, v in
                                                  kw.items())

@@ -405,8 +405,9 @@ def test_moe_functions_gradients_match_slot_autograd(cuda, G, S, D, E, K,
 # --------------------------------------------------------------------------
 
 #: B, H, Sq, Sk, hd, causal, window, softcap: the reference sweep
-#: (tests/test_kernels.py), partial tiles, and llama3.2-1b's training
-#: shape cut to one microbatch row and 4 heads
+#: (tests/test_kernels.py), partial tiles, llama3.2-1b's training shape cut
+#: to one microbatch row and 4 heads, and head dim 32 (the reduced
+#: llama3.2-1b's shape, and ragged with every mask)
 FLASH_CASES = [
     (1, 1, 128, 128, 64, True, None, None),
     (2, 2, 256, 256, 64, True, None, None),
@@ -424,6 +425,8 @@ FLASH_CASES = [
     (1, 4, 2048, 2048, 64, True, None, None),      # llama training length
     (1, 2, 256, 128, 64, False, 20, None),         # rows 147.. see no key
     (1, 2, 200, 64, 128, True, 16, 30.0),          # rows 79.. see no key
+    (2, 8, 128, 128, 32, True, None, None),        # reduced llama3.2-1b
+    (1, 2, 200, 200, 32, True, 16, 30.0),          # hd 32, ragged, all masks
 ]
 FLASH_FWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 FLASH_BWD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (5e-2, 1.6e-2)}
@@ -449,8 +452,11 @@ def test_flash_forward_matches_plain(cuda, dtype, B, H, Sq, Sk, hd, causal,
                                softcap=cap)
     want = fk.flash_attention_ref(q, k, v, causal=causal, window=window,
                                   softcap=cap)
+    again = fk.flash_fwd_cuda(q, k, v, causal=causal, window=window,
+                              softcap=cap)
     torch.cuda.synchronize()
-    assert fk.flash_fwd_cuda.launches == n + 1
+    assert fk.flash_fwd_cuda.launches == n + 2
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
     assert o.dtype == dtype and lse.shape == (B, H, Sq)
     assert bool(torch.isfinite(o.float()).all())
     torch.testing.assert_close(o.float(), want.float(),
@@ -550,8 +556,8 @@ def test_flash_ops_pads_as_the_reference(cuda):
 def test_flash_kernels_reject_what_they_do_not_take(cuda):
     q, k, v, _ = _flash_inputs(1, 2, 64, 64, 64, torch.float32, cuda)
     with pytest.raises(ValueError, match="head_dim"):
-        fk.flash_fwd_cuda(q[..., :32].contiguous(), k[..., :32].contiguous(),
-                          v[..., :32].contiguous())
+        fk.flash_fwd_cuda(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                          v[..., :48].contiguous())
     with pytest.raises(ValueError, match="one dtype"):
         fk.flash_fwd_cuda(q, k.bfloat16(), v)
     with pytest.raises(ValueError, match="contiguous"):
