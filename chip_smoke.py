@@ -19,7 +19,10 @@ result lines:
              and bfloat16 (atol 2e-2), each case bit-equal over two calls; MoE
              dispatch and combine at the reference test sweep, olmoe-1b-7b's
              decode and prefill shapes and with out-of-range indices, float32
-             (atol 1e-5) and bfloat16 (atol 5e-2); the MoE autograd Functions'
+             (atol 1e-5) and bfloat16 (atol 5e-2), and bit-equal to the plain
+             versions with the kernels' rounding (dispatch formed in float32
+             and cast once; ``combine_slot_ordered``), on the contiguous and
+             the strided slab, and over two calls; the MoE autograd Functions'
              dx / dbuf / dw against autograd of the slot versions at olmoe's
              prefill shape (atol 1e-5, dw 1e-4); flash attention forward at the
              reference sweep, partial tiles and head dim 32 (float32 atol
@@ -49,7 +52,8 @@ result lines:
              16 per decode step and per prefill, paged decode 16 per
              decode step), a teacher-forced prefill and ``decode_step``
              through the kernels against the plain versions, and a
-             profiled decode step split by kernel;
+             profiled decode step split by kernel, with each MoE kernel's
+             time per call in the step;
 8. train   — ``train("llama3.2-1b", reduced=False)`` on the card, float32
              with AdamW state on the card: 3 steps of 8 x 2048 tokens in
              microbatches of 4, counting the flash launches of every layer
@@ -77,7 +81,16 @@ result lines:
              events, median of repeats, L2 flushed or exceeded); paged
              decode also in bfloat16 and at the llama serve shape; the
              float32 flash bounds at both the CUDA-core and the 3xTF32
-             tensor-core rate (the lower time is the bound).
+             tensor-core rate (the lower time is the bound); the MoE
+             kernels with median, min and p90 of their calls beside an
+             empty kernel timed the same way, combine also on the strided
+             slab.
+
+    python3 chip_smoke.py --moe-baseline OLD_MOE_CU
+
+builds an earlier ``moe.cu`` beside the kernels, checks that the MoE
+kernels give its bits, and times the two designs in turns (previous, this,
+this, previous).
 
 It then prints one ``{"kernels": [...]}`` JSON line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Imports neither jax nor the JAX
@@ -86,6 +99,8 @@ package.
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -267,11 +282,27 @@ MOE_CASES = [
 ]
 
 
-def phase_moe_kernels(torch, mk):
+def same_bits(torch, a, b) -> bool:
+    """a and b hold the same bits (signed zeros and NaNs included)."""
+    as_int = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.view(as_int[a.dtype]), b.view(as_int[b.dtype]))
+
+
+def phase_moe_kernels(torch, mk, baseline=None):
+    """Both MoE kernels against their plain versions on MOE_CASES and with
+    out-of-range indices: within MOE_TOL of ``dispatch_slot`` /
+    ``combine_slot``, and bit for bit equal to the plain versions with the
+    kernels' rounding (dispatch formed in float32 and cast once, which in
+    float32 is ``dispatch_slot`` itself; ``combine_slot_ordered``), for the
+    contiguous and the strided slab, and to their own second launch.
+    ``baseline``: the entry points of an earlier ``moe.cu``, whose outputs
+    the kernels must equal bit for bit."""
     from repro_torch.nn import moe as nn_moe
 
     worst = {k: {"float32": 0.0, "bfloat16": 0.0}
              for k in ("moe_dispatch", "moe_combine")}
+    n_exact = 0
 
     def held(label, dname, got, want):
         """``label`` starts with the kernel's name: dispatch or combine."""
@@ -282,26 +313,52 @@ def phase_moe_kernels(torch, mk):
         check(err <= MOE_TOL[dname], f"{label} {dname}: max|kernel-slot| "
               f"{err:.3e} > {MOE_TOL[dname]:.0e}")
 
+    def exact(label, dname, got, want):
+        nonlocal n_exact
+        torch.cuda.synchronize()
+        check(same_bits(torch, got, want), f"{label} {dname}: not bit-equal")
+        n_exact += 1
+
+    def both(label, dname, x, src, sw, eid, pos, w):
+        """Every check of one case; returns the slab."""
+        dt = x.dtype
+        buf = mk.moe_dispatch_cuda(x, src, sw)
+        held(f"dispatch {label}", dname, buf, mk.dispatch_slot(x, src, sw))
+        exact(f"dispatch {label} vs f32-formed dispatch_slot", dname, buf,
+              mk.dispatch_slot(x.float(), src, sw).to(dt))
+        exact(f"dispatch {label} on repeat", dname,
+              mk.moe_dispatch_cuda(x, src, sw), buf)
+        # the slab as the expert product leaves it: a (G, E, C, D) view of
+        # (E, G, C, D) storage, read through its strides
+        strided = buf.transpose(0, 1).contiguous().transpose(0, 1)
+        want = mk.combine_slot_ordered(buf, eid, pos, w)
+        for slab, how in ((buf, ""), (strided, " strided slab")):
+            y = mk.moe_combine_cuda(slab, eid, pos, w)
+            held(f"combine {label}{how}", dname, y,
+                 mk.combine_slot(buf, eid, pos, w))
+            exact(f"combine {label}{how} vs combine_slot_ordered", dname, y,
+                  want)
+            exact(f"combine {label}{how} on repeat", dname,
+                  mk.moe_combine_cuda(slab, eid, pos, w), y)
+        if baseline is not None:
+            with moe_fns(mk, baseline):
+                old = (mk.moe_dispatch_cuda(x, src, sw),
+                       mk.moe_combine_cuda(strided, eid, pos, w))
+            exact(f"dispatch {label} vs the previous design", dname, old[0],
+                  buf)
+            exact(f"combine {label} vs the previous design", dname, old[1],
+                  want)
+        return buf
+
     for label, G, S, D, E, K, cf in MOE_CASES:
         for dname in ("float32", "bfloat16"):
             x, src, sw, eid, pos, w, C = moe_inputs(
                 torch, nn_moe, mk, G=G, S=S, D=D, E=E, K=K, cf=cf,
                 dtype=getattr(torch, dname), seed=len(label))
-            buf = mk.moe_dispatch_cuda(x, src, sw)
+            buf = both(label, dname, x, src, sw, eid, pos, w)
             check(buf.shape == (G, E, C, D), f"{label}: slab {buf.shape}")
-            held(f"dispatch {label}", dname, buf,
-                 mk.dispatch_slot(x, src, sw))
             check(bool(torch.isfinite(buf.float()).all()),
                   f"{label} {dname}: non-finite slab")
-            held(f"combine {label}", dname, mk.moe_combine_cuda(buf, eid,
-                                                                pos, w),
-                 mk.combine_slot(buf, eid, pos, w))
-            # the slab as the expert product leaves it: a (G, E, C, D)
-            # view of (E, G, C, D) storage, read through its strides
-            strided = buf.transpose(0, 1).contiguous().transpose(0, 1)
-            held(f"combine {label} strided slab", dname,
-                 mk.moe_combine_cuda(strided, eid, pos, w),
-                 mk.combine_slot(buf, eid, pos, w))
         say("kernels", f"moe_dispatch + moe_combine ok: {label} (C {C})")
 
     # indices outside the arrays, negative and past the end: both kernels
@@ -317,22 +374,22 @@ def phase_moe_kernels(torch, mk):
         src = torch.randint(-3, S + 4, (G, E, C), generator=g,
                             device="cuda", dtype=torch.int32)
         sw = torch.rand((G, E, C), generator=g, device="cuda")
-        held("dispatch clamp", dname, mk.moe_dispatch_cuda(x, src, sw),
-             mk.dispatch_slot(x, src, sw))
-        buf = torch.randn((G, E, C, D), generator=g, device="cuda").to(dt)
         eid = torch.randint(-2, E + 3, (G, S, K), generator=g,
                             device="cuda", dtype=torch.int32)
         pos = torch.randint(-2, C + 5, (G, S, K), generator=g,
                             device="cuda", dtype=torch.int32)
         w = torch.rand((G, S, K), generator=g, device="cuda")
         w = w / w.sum(-1, keepdim=True)
-        held("combine clamp", dname, mk.moe_combine_cuda(buf, eid, pos, w),
-             mk.combine_slot(buf, eid, pos, w))
+        both("clamp", dname, x, src, sw, eid, pos, w)
     say("kernels", "moe_dispatch + moe_combine ok: out-of-range src/eid/pos "
         "clamped")
     for kname, err in worst.items():
         say("kernels", f"{kname} max|err| float32 {err['float32']:.3e} "
             f"(atol 1e-5), bfloat16 {err['bfloat16']:.3e} (atol 5e-2)")
+    say("kernels", f"MoE bit-exact checks: {n_exact} passed (float32 and "
+        "bfloat16: dispatch = dispatch_slot formed in float32, combine = "
+        "combine_slot_ordered, contiguous and strided slab, each on repeat"
+        + ("; both = the previous design" if baseline else "") + ")")
     return worst
 
 
@@ -1009,13 +1066,15 @@ PROFILE_SPLIT = (("embedding_bag", ("embedding_bag",)),
                  ("copies", ("copy",)))
 
 
-def device_split(torch, prof, steps: int, label: str):
+def device_split(torch, prof, steps: int, label: str, calls=None):
     """(device busy ms, {kernel group: ms}, kernel launches) per step from
-    a ``torch.profiler`` run of ``steps`` steps."""
+    a ``torch.profiler`` run of ``steps`` steps; ``calls``, a dict, gets
+    each group's kernel count over the run."""
     from torch.autograd import DeviceType
 
     split = {name: 0.0 for name, _ in PROFILE_SPLIT}
     split["rest"] = 0.0
+    counts = dict.fromkeys(split, 0)
     dev_us, launches = 0.0, 0
     for e in prof.key_averages():
         if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
@@ -1029,7 +1088,10 @@ def device_split(torch, prof, steps: int, label: str):
         name = next((n for n, frags in PROFILE_SPLIT
                      if any(f in key for f in frags)), "rest")
         split[name] += t
+        counts[name] += e.count
     check(dev_us > 0, f"{label}: the profiler saw no device time")
+    if calls is not None:
+        calls.update(counts)
     return (dev_us / 1e3 / steps,
             {n: t / 1e3 / steps for n, t in split.items()}, launches / steps)
 
@@ -1056,7 +1118,8 @@ def phase_profile(torch, state, label: str, steps: int = 8):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run()
-    dev_ms, split, launches = device_split(torch, prof, steps, label)
+    calls = {}
+    dev_ms, split, launches = device_split(torch, prof, steps, label, calls)
     idle = 1.0 - dev_ms / wall_ms
     parts = ", ".join(f"{n} {t:.3f}" for n, t in split.items()
                       if t or n in ("matmul", "paged_decode", "rest"))
@@ -1064,6 +1127,16 @@ def phase_profile(torch, state, label: str, steps: int = 8):
         f"{wall_ms:.2f} ms/step; device busy {dev_ms:.3f} ms/step ({parts}); "
         f"device idle share {idle:.3f}; {launches:.0f} kernel "
         f"launches/step")
+    # each MoE kernel's time per call inside the step (L2 warm from the
+    # layers around it)
+    per_call = {n: split[n] * steps / calls[n] for n in ("moe_dispatch",
+                                                         "moe_combine")
+                if calls[n]}
+    if per_call:
+        say("profile", f"{label} in-path time per call: " + ", ".join(
+            f"{n} {t:.4f} ms ({calls[n]} calls)" for n, t in
+            per_call.items()))
+    return per_call
 
 
 # --------------------------------------------------------------------------
@@ -1494,12 +1567,12 @@ def phase_timing(torch, pk):
     return res
 
 
-def time_cold_ms(torch, fn, args, flush, reps: int = 30) -> float:
-    """Median over ``reps`` calls of one call's time (CUDA events around
-    the call), with the L2 cache flushed before each by writing ``flush``
-    (larger than the 50 MB L2), so every call meets its inputs and its
-    output in device memory, as a decode step or prefill does.  Ten
-    flushed calls first bring the card out of idle."""
+def time_cold(torch, fn, args, flush, reps: int = 30) -> list:
+    """Each of ``reps`` calls' time in ms (CUDA events around the call),
+    with the L2 cache flushed before each by writing ``flush`` (larger
+    than the 50 MB L2), so every call meets its inputs and its output in
+    device memory, as a decode step or prefill does.  Ten flushed calls
+    first bring the card out of idle."""
     for _ in range(10):
         flush.zero_()
         fn(*args)
@@ -1514,18 +1587,77 @@ def time_cold_ms(torch, fn, args, flush, reps: int = 30) -> float:
         end.record()
         events.append((start, end))
     torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
+    return [s.elapsed_time(e) for s, e in events]
 
 
-def phase_moe_timing(torch, mk):
+def time_cold_ms(torch, fn, args, flush, reps: int = 30) -> float:
+    """Median of :func:`time_cold`."""
+    return statistics.median(time_cold(torch, fn, args, flush, reps))
+
+
+def spread(times) -> dict:
+    """Median, min and p90 of per-call times."""
+    t = sorted(times)
+    return {"median": statistics.median(t), "min": t[0],
+            "p90": t[math.ceil(0.9 * len(t)) - 1]}
+
+
+def fmt_spread(sp) -> str:
+    return (f"{sp['median']:.4f} ms (min {sp['min']:.4f}, p90 "
+            f"{sp['p90']:.4f})")
+
+
+@contextlib.contextmanager
+def moe_fns(mk, fns):
+    """Launch the MoE wrappers through the entry points ``fns`` (another
+    build of ``moe.cu``, from :func:`build_baseline`) inside the block."""
+    saved = mk._kernel_fns()
+    mk._FNS = fns
+    try:
+        yield
+    finally:
+        mk._FNS = saved
+
+
+def build_baseline(mk, source: str):
+    """The entry points of another ``moe.cu`` (an earlier design of the
+    kernels, e.g. ``git show <commit>:src/repro_torch/kernels/csrc/moe.cu``
+    saved outside the package), built with the port's nvcc flags into the
+    build directory."""
+    import ctypes
+    import hashlib
+
+    from repro_torch.kernels import _build
+
+    path = Path(source).resolve()
+    check(path.is_file(), f"--moe-baseline {source}: no such file")
+    digest = hashlib.sha256(path.read_bytes()).hexdigest()[:16]
+    lib = _build.BUILD_DIR / f"libmoe-baseline-{digest}.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+                           str(lib), str(path)], capture_output=True,
+                          text=True, timeout=600)
+    check(proc.returncode == 0, f"nvcc failed on {path}:\n{proc.stdout}"
+          f"{proc.stderr}")
+    return mk.bind(ctypes.CDLL(str(lib)))
+
+
+def phase_moe_timing(torch, mk, baseline=None):
     """Both MoE kernels at olmoe-1b-7b's decode (4 slots, one token each)
-    and 512-token prefill shapes, float32, beside the least bytes each
-    function needs at 3.35 TB/s, the plain version's time and one library
-    call that computes the same function: ``F.embedding_bag`` in sum mode
-    with per-sample weights over the flattened rows (dispatch: bags of
-    one source row weighted by slot_w; combine: bags of a token's K slab
-    rows weighted by w), its flat indices built before the timer starts
-    and clamped as the kernels clamp."""
+    and 512-token prefill shapes, float32, with L2 flushed before each
+    call (:func:`time_cold`): combine on the contiguous slab and on the
+    strided slab the expert product hands it.  Each is timed in turns with
+    the ``baseline`` design when one is given (previous, this, this,
+    previous; 30 calls a turn), else in two turns of its own, and reported
+    as median, min and p90 over its calls, beside an empty kernel timed
+    the same way (``torch.cuda._sleep(0)``: the floor of one event-timed
+    launch), the least bytes each function needs at 3.35 TB/s, the plain
+    version's time and one library call that computes the same function:
+    ``F.embedding_bag`` in sum mode with per-sample weights over the
+    flattened rows (dispatch: bags of one source row weighted by slot_w;
+    combine: bags of a token's K slab rows weighted by w), its flat
+    indices built before the timer starts and clamped as the kernels
+    clamp."""
     from repro_torch.nn import moe as nn_moe
 
     F = torch.nn.functional
@@ -1535,7 +1667,12 @@ def phase_moe_timing(torch, mk):
                                mode="sum")
 
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
-    res = {"moe_dispatch": {}, "moe_combine": {}}
+    floor = spread(time_cold(torch, torch.cuda._sleep, (0,), flush))
+    say("timing", f"empty kernel (torch.cuda._sleep(0)), L2 flushed, event "
+        f"timed: {fmt_spread(floor)}")
+    turns = ("previous", "this", "this", "previous") if baseline else (
+        "this", "this")
+    res = {"moe_dispatch": {}, "moe_combine": {}, "floor": floor}
     el, D = 4, 2048
     for shape, G, S in (("decode", 4, 1), ("prefill", 1, 512)):
         x, src, sw, eid, pos, w, C = moe_inputs(
@@ -1543,6 +1680,7 @@ def phase_moe_timing(torch, mk):
             dtype=torch.float32, seed=11)
         E, K = 64, 8
         buf = mk.moe_dispatch_cuda(x, src, sw)
+        strided = buf.transpose(0, 1).contiguous().transpose(0, 1)
         # dispatch: the slab written, each distinct source row it reads
         # (empty slots read row 0), slot_src and slot_w once
         rows = sum(torch.unique(src[g].clamp(0, S - 1)).numel()
@@ -1571,19 +1709,40 @@ def phase_moe_timing(torch, mk):
             err = (got - want).abs().max().item()
             check(err <= MOE_TOL["float32"], f"{name} {shape}: embedding_bag "
                   f"disagrees with the plain version by {err:.3e}")
-            kern = time_cold_ms(torch, fn, args, flush)
-            plain_ms = time_cold_ms(torch, plain, args, flush)
-            lib_ms = time_cold_ms(torch, bag, lib_args, flush)
+            variants = [("", args)]
+            if name == "moe_combine":
+                variants.append((" strided slab", (strided, eid, pos, w)))
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = ops / F32_FLOPS * 1e3
             bound = max(t_bytes, t_ops)
             by = "bytes" if t_bytes >= t_ops else "operations"
-            res[name][shape] = {"ms": kern, "plain_ms": plain_ms,
-                                "bound_ms": bound, "bound_by": by,
-                                "library_ms": lib_ms, "bytes": nbytes}
-            say("timing", f"{name} at olmoe {shape} G{G} S{S} E{E} K{K} C{C} "
-                f"D{D} float32: kernel {kern:.4f} ms, bound {bound:.4f} ms "
-                f"({by}: {nbytes} bytes), plain version {plain_ms:.4f} ms, "
+            for how, a in variants:
+                times = {"this": [], "previous": []}
+                medians = []
+                for who in turns:
+                    with (moe_fns(mk, baseline) if who == "previous"
+                          else contextlib.nullcontext()):
+                        t = time_cold(torch, fn, a, flush)
+                    times[who] += t
+                    medians.append(f"{who} {statistics.median(t):.4f}")
+                this = spread(times["this"])
+                prev = spread(times["previous"]) if baseline else None
+                res[name][shape + how.replace(" ", "_")] = {
+                    "this": this, "previous": prev}
+                say("timing", f"{name}{how} at olmoe {shape} G{G} S{S} E{E} "
+                    f"K{K} C{C} D{D} float32: kernel {fmt_spread(this)}"
+                    + (f", previous design {fmt_spread(prev)}" if prev
+                       else "") + f"; turn medians {', '.join(medians)}; "
+                    f"empty-kernel floor {floor['median']:.4f} ms, bound "
+                    f"{bound:.4f} ms ({by}: {nbytes} bytes)")
+            kern = res[name][shape]["this"]["median"]
+            plain_ms = time_cold_ms(torch, plain, args, flush)
+            lib_ms = time_cold_ms(torch, bag, lib_args, flush)
+            res[name][shape].update(
+                ms=kern, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms, bytes=nbytes)
+            say("timing", f"{name} at olmoe {shape}: kernel {kern:.4f} ms, "
+                f"bound {bound:.4f} ms, plain version {plain_ms:.4f} ms, "
                 f"embedding_bag {lib_ms:.4f} ms")
     return res
 
@@ -1736,7 +1895,12 @@ def phase_bag_timing(torch, bk):
     return res
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--moe-baseline", metavar="MOE_CU",
+                    help="an earlier moe.cu: the MoE kernels are checked bit "
+                         "for bit against it and timed in turns with it")
+    args = ap.parse_args(argv)
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a "
               "checkout of the repository", file=sys.stderr)
@@ -1786,7 +1950,9 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     worst = phase_kernels(torch, pk)
-    moe_worst = phase_moe_kernels(torch, mk)
+    baseline = (build_baseline(mk, args.moe_baseline)
+                if args.moe_baseline else None)
+    moe_worst = phase_moe_kernels(torch, mk, baseline)
     moe_bwd = phase_moe_backward(torch, mk)
     flash_worst = phase_flash_kernels(torch, fk)
     bag_worst = phase_bag_kernels(torch, bk)
@@ -1802,7 +1968,11 @@ def main() -> int:
 
     # 7. olmoe-1b-7b
     moe_launches, state = phase_moe(torch, counters)
-    phase_profile(torch, state, "olmoe-1b-7b")
+    moe_in_path = phase_profile(torch, state, "olmoe-1b-7b")
+    if baseline is not None:      # in turns: this, previous, this
+        with moe_fns(mk, baseline):
+            phase_profile(torch, state, "olmoe-1b-7b, previous MoE design")
+        phase_profile(torch, state, "olmoe-1b-7b")
     del state
     torch.cuda.empty_cache()
 
@@ -1819,7 +1989,7 @@ def main() -> int:
 
     # 12. timing
     timing = phase_timing(torch, pk)
-    moe_timing = phase_moe_timing(torch, mk)
+    moe_timing = phase_moe_timing(torch, mk, baseline)
     flash_timing = phase_flash_timing(torch, fk)
     bag_timing = phase_bag_timing(torch, bk)
 
@@ -1855,6 +2025,13 @@ def main() -> int:
             **{k: t["decode"][k] for k in TIMED},
             "shape": "olmoe-1b-7b decode, G4 S1 E64 K8 C8 D2048",
             "prefill": {k: t["prefill"][k] for k in TIMED},
+            # median / min / p90 of this design and the previous one (null
+            # without --moe-baseline), the empty-kernel floor, and the
+            # in-path time per call of the olmoe decode profile (warm L2)
+            "spread": {shape: {who: v[who] for who in ("this", "previous")}
+                       for shape, v in t.items()},
+            "floor_ms": moe_timing["floor"]["median"],
+            "in_path_ms": moe_in_path.get(kname),
         })
     for kname in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
         t = flash_timing[kname]

@@ -7,35 +7,58 @@
 //   * `combine_pallas` (:170, body `_combine_kernel` :151)
 //       out[g, s, :] = sum_{k=0..K-1} w[g, s, k] * buf[g, eid[g,s,k], pos[g,s,k], :]
 //     with an f32 accumulator, k in order, cast to buf's dtype once.
-// The plain PyTorch versions are `dispatch_slot` / `combine_slot` in
-// src/repro_torch/kernels/moe.py; the wrappers that launch these kernels are
-// `moe_dispatch_cuda` / `moe_combine_cuda` in the same module.
+// The plain PyTorch versions are `dispatch_slot` / `combine_slot` (and
+// `combine_slot_ordered`, which sums in the kernel's order) in
+// src/repro_torch/kernels/moe.py; the wrappers that launch these kernels
+// are `moe_dispatch_cuda` / `moe_combine_cuda` in the same module.
 //
-// What bounds them: bytes.  Each output element costs one multiply (and one
-// add in combine) per element read, far below the card's flops-per-byte
-// balance.  Dispatch writes the whole (G, E, C, D) slab and reads each
-// distinct source row; combine reads the K expert rows of each token and
-// writes one row.
+// What bounds them on this card.  Both do one multiply (and, in combine,
+// one add) per element moved, far below the card's flops-per-byte balance,
+// so the floor is bytes: dispatch writes the whole (G, E, C, D) slab (16.7
+// MB at OLMoE's decode shape, 5 us at 3.35 TB/s); combine reads K rows
+// per token.  At decode, combine moves only ~0.3 MB (0.1 us), so what
+// bounds it there is latency: how many dependent trips to device memory a
+// thread makes before its store.  A design with one block per slot (or a
+// k loop that loads index, then row, then adds) pays that chain per block
+// or per k.
 //
-// Design (correct first):
-//  * the TPU grid (G, E, C) resp. (G, S, K) with a sequential k axis becomes
-//    one CUDA block per slot (dispatch) resp. per token (combine) along
-//    blockIdx.x, and blockIdx.y splits D into chunks of kThreads * VEC
-//    elements, so even the decode shape (4 tokens) has several blocks;
-//  * the TPU kernels' scalar-prefetched indices become each block loading
-//    its own slot_src / (eid, pos) and weight;
-//  * indices are clamped into the arrays (src to [0, S-1] after max(., 0),
-//    eid to [0, E-1], pos to [0, C-1]), so a bad index never reads out of
-//    bounds; an empty slot holds 0 * x[g, 0] exactly as the TPU kernel
-//    computes it (not a literal zero);
-//  * rows move as 16-byte vectors (4 float32 or 8 bfloat16) when D and the
-//    pointers allow it, else one element a thread;
-//  * combine's sum over k runs inside the thread in order (the TPU grid's
-//    sequential k axis), in f32 registers; products and sums are rounded
-//    separately (__fmul_rn / __fadd_rn), as the TPU kernel forms them;
+// Design:
+//  * combine: one warp per (token, column chunk).  Lane k loads pair k's
+//    (eid, pos, w) in one coalesced read and clamps them into a slab offset;
+//    the warp shares them by __shfl_sync, so no thread reloads an index.
+//    Then each lane requests all of its rows of a group of up to 8 pairs
+//    (16-byte loads, 8 in flight, each sent as soon as its offset's shuffle
+//    returns) before the first add, and sums them in k order:
+//    __fadd_rn(acc, __fmul_rn(row, w_k)) from 0 in f32 registers, the TPU
+//    grid's sequential k axis.  The chain is index, rows, store.
+//    K above 8 runs in groups of 8, 4, 2, 1 (k order kept); above 32, the
+//    indices come in groups of 32.  A chunk is 32 or 64 threads wide, 32
+//    when the blocks would be few (OLMoE decode: 4 tokens -> 64 blocks),
+//    so a small batch still spreads over many SMs;
+//  * dispatch: one block per tile of 8 consecutive slots of a group by a
+//    2 KB column chunk.  Warp 0 loads the tile's slot_src / slot_w in one
+//    read, clamps them, finds the distinct source rows (at decode every
+//    slot of a group reads the same row) and copies each distinct row
+//    chunk once into shared memory with cp.async.bulk (TMA's 1-D copy),
+//    all completing on one mbarrier armed with the byte count.  Then each
+//    thread forms w * row for every slot of the tile from shared memory
+//    and writes it with 16-byte stores, 8 in flight.  OLMoE decode runs
+//    1,024 such blocks of 128 threads in one wave (16 KB of shared memory
+//    each), not 8,192 blocks of one slot;
+//  * the arithmetic and clamping are the TPU kernels': src clamped to
+//    [0, S-1] after max(., 0), eid to [0, E-1], pos to [0, C-1], so a bad
+//    index never reads out of bounds; an empty slot holds 0 * x[g, 0]
+//    (not a literal zero); products and sums rounded separately.  No
+//    atomics: each output element is written by one thread, so a launch is
+//    bit-equal on repeat;
 //  * combine reads the slab through its g/e/c strides, so the expert
 //    product's permuted output needs no copy; only the D axis must be
-//    contiguous.
+//    contiguous;
+//  * fallbacks, for what the fast paths cannot take: bulk copies and
+//    16-byte vectors need D, the strides and the pointers to be multiples
+//    of 16 bytes; otherwise dispatch stages its distinct rows with plain
+//    loads and both move one element a thread.  Every path forms the same
+//    bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -43,7 +66,12 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarp = 32;
+constexpr int kSlots = 8;             // slots of a dispatch tile
+constexpr int kChunkBytes = 2048;     // bytes of a row in a dispatch tile
+constexpr int kDispatchThreads = 128;
+constexpr int kGroup = 8;             // combine rows in flight per lane
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -60,56 +88,248 @@ struct alignas(sizeof(T) * VEC) Vec {
 };
 
 template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads) dispatch_kernel(
-    const T* __restrict__ x, const int32_t* __restrict__ slot_src,
-    const float* __restrict__ slot_w, T* __restrict__ out, int S, int EC,
-    int D) {
-  const long long slot = blockIdx.x;  // flat (g, e, c)
-  const int d0 = (blockIdx.y * kThreads + threadIdx.x) * VEC;
-  if (d0 >= D) return;
-  const int g = (int)(slot / EC);
-  const int src = min(max(slot_src[slot], 0), S - 1);
-  const float w = slot_w[slot];
-  const T* row = x + ((long long)g * S + src) * D + d0;
-  Vec<T, VEC> a = *reinterpret_cast<const Vec<T, VEC>*>(row);
+__device__ __forceinline__ Vec<T, VEC> scaled(const Vec<T, VEC>& a, float w) {
   Vec<T, VEC> o;
 #pragma unroll
   for (int i = 0; i < VEC; ++i) from_f32(&o.v[i], __fmul_rn(to_f32(a.v[i]), w));
-  *reinterpret_cast<Vec<T, VEC>*>(out + slot * D + d0) = o;
+  return o;
+}
+
+// --------------------------------------------------------------------------
+// mbarrier and 1-D bulk copy (PTX, sm_90)
+// --------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// global -> shared, `bytes` a multiple of 16, both addresses 16-byte
+// aligned; completes `bytes` on the mbarrier
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// --------------------------------------------------------------------------
+// dispatch
+// --------------------------------------------------------------------------
+
+struct DispatchSmem {
+  alignas(128) unsigned char rows[kSlots][kChunkBytes];  // distinct rows
+  unsigned long long bar;
+  int row_of[kSlots];  // each slot's row in `rows`
+  int src[kSlots];     // each distinct row's source token
+  float w[kSlots];
+  int distinct;
+};
+
+// grid (G * runs, column chunks): block (g * runs + r, ch) writes slots
+// [8r, 8r + 8) of group g (flat e * C + c), columns [ch * chunk, ...).
+// BULK: the fast path (16-byte vectors, rows staged by cp.async.bulk).
+template <typename T, bool BULK>
+__global__ void __launch_bounds__(kDispatchThreads) dispatch_kernel(
+    const T* __restrict__ x, const int32_t* __restrict__ slot_src,
+    const float* __restrict__ slot_w, T* __restrict__ out, int S, int EC,
+    int D, int runs) {
+  constexpr int VEC = BULK ? 16 / sizeof(T) : 1;
+  constexpr int kChunk = kChunkBytes / sizeof(T);
+  __shared__ DispatchSmem sm;
+  const int g = blockIdx.x / runs;
+  const int c0 = (blockIdx.x - g * runs) * kSlots;
+  const int ns = min(kSlots, EC - c0);
+  const int d0 = blockIdx.y * kChunk;
+  const int dc = min(kChunk, D - d0);
+  const long long slot0 = (long long)g * EC + c0;
+  const T* xg = x + (long long)g * S * D + d0;
+  const uint32_t bar = smem_u32(&sm.bar);
+  const int tid = threadIdx.x;
+
+  if (tid < kWarp) {
+    const int lane = tid;
+    if (BULK && lane == 0) mbar_init(bar, 1);
+    int src = -1;
+    float w = 0.f;
+    if (lane < ns) {
+      src = min(max(slot_src[slot0 + lane], 0), S - 1);
+      w = slot_w[slot0 + lane];
+    }
+    // the first slot of the tile that reads the same row leads it
+    int first = lane;
+#pragma unroll
+    for (int j = kSlots - 1; j >= 0; --j) {
+      const int sj = __shfl_sync(kFull, src, j);
+      if (j < lane && sj == src) first = j;
+    }
+    const bool lead = lane < ns && first == lane;
+    const unsigned leads = __ballot_sync(kFull, lead);
+    const int rank = __popc(leads & ((1u << lane) - 1u));
+    const int row = __shfl_sync(kFull, rank, first);
+    if (lane < ns) {
+      sm.row_of[lane] = row;
+      sm.w[lane] = w;
+    }
+    if (lead) sm.src[rank] = src;
+    if (lane == 0) sm.distinct = __popc(leads);
+    if (BULK) {
+      const uint32_t bytes = dc * sizeof(T);
+      if (lane == 0) mbar_arrive_expect_tx(bar, __popc(leads) * bytes);
+      __syncwarp();
+      if (lead)
+        bulk_load(smem_u32(sm.rows[rank]), xg + (long long)src * D, bytes,
+                  bar);
+    }
+  }
+  __syncthreads();
+  const T* rows = reinterpret_cast<const T*>(sm.rows);
+  if (BULK) {
+    mbar_wait(bar, 0);
+  } else {
+    T* stage = reinterpret_cast<T*>(sm.rows);
+    for (int r = 0; r < sm.distinct; ++r) {
+      const T* xr = xg + (long long)sm.src[r] * D;
+      for (int i = tid; i < dc; i += kDispatchThreads)
+        stage[r * kChunk + i] = xr[i];
+    }
+    __syncthreads();
+  }
+  const int nv = dc / VEC;
+  for (int i = 0; i < ns; ++i) {
+    const float w = sm.w[i];
+    const Vec<T, VEC>* r =
+        reinterpret_cast<const Vec<T, VEC>*>(rows + sm.row_of[i] * kChunk);
+    Vec<T, VEC>* o = reinterpret_cast<Vec<T, VEC>*>(out + (slot0 + i) * D + d0);
+    for (int j = tid; j < nv; j += kDispatchThreads) o[j] = scaled(r[j], w);
+  }
+}
+
+// --------------------------------------------------------------------------
+// combine
+// --------------------------------------------------------------------------
+
+// Pairs k .. k+N-1 (their slab offsets and weights held by lanes k..k+N-1):
+// all N rows are loaded before the first add, then summed in k order.
+// Every lane of the warp calls it (the shuffles); only `active` lanes load.
+template <typename T, int VEC, int N>
+__device__ __forceinline__ void accumulate(float (&acc)[VEC],
+                                           const T* __restrict__ col,
+                                           bool active, long long off,
+                                           float w, int k) {
+  // each row's load goes out as soon as its offset arrives, before the
+  // next offset's shuffle; the weights follow the loads
+  Vec<T, VEC> a[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const long long o = __shfl_sync(kFull, off, k + i);
+    if (active) a[i] = *reinterpret_cast<const Vec<T, VEC>*>(col + o);
+  }
+  float wk[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) wk[i] = __shfl_sync(kFull, w, k + i);
+  if (!active) return;
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int v = 0; v < VEC; ++v)
+      acc[v] = __fadd_rn(acc[v], __fmul_rn(to_f32(a[i].v[v]), wk[i]));
 }
 
 // The slab may be any (G, E, C, D) view whose rows are contiguous: the
 // expert product leaves it as a permuted view of a batched matmul, and
-// the kernel reads it through its g/e/c strides (in elements) instead of
-// a copy.
+// the kernel reads it through its g/e/c strides (in elements).
+// grid (G * S, column chunks of blockDim.x vectors).
 template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads) combine_kernel(
+__global__ void __launch_bounds__(2 * kWarp) combine_kernel(
     const T* __restrict__ buf, const int32_t* __restrict__ eid,
     const int32_t* __restrict__ pos, const float* __restrict__ w,
     T* __restrict__ out, int S, int K, int E, int C, int D, long long sg,
     long long se, long long sc) {
   const long long tok = blockIdx.x;  // flat (g, s)
-  const int d0 = (blockIdx.y * kThreads + threadIdx.x) * VEC;
-  if (d0 >= D) return;
-  const T* slab = buf + (tok / S) * sg + d0;
-  float acc[VEC];
+  const int lane = threadIdx.x % kWarp;
+  const int nvec = D / VEC;
+  const int chunks = (nvec + blockDim.x - 1) / blockDim.x;
+  const T* slab = buf + (tok / S) * sg;
+
+  // lane k holds pair k0 + k's clamped slab offset and weight
+  long long off = 0;
+  float wk = 0.f;
+  auto load_pairs = [&](int k0) {
+    const int k = k0 + lane;
+    off = 0;
+    wk = 0.f;
+    if (k < K) {
+      const long long j = tok * K + k;
+      const int e = min(max(eid[j], 0), E - 1);
+      const int p = min(max(pos[j], 0), C - 1);
+      off = e * se + p * sc;
+      wk = w[j];
+    }
+  };
+  if (K <= kWarp) load_pairs(0);  // once for every chunk
+
+  for (int ch = blockIdx.y; ch < chunks; ch += gridDim.y) {
+    const int j = ch * blockDim.x + threadIdx.x;
+    const bool active = j < nvec;
+    const T* col = slab + (long long)j * VEC;
+    float acc[VEC];
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
-  for (int k = 0; k < K; ++k) {
-    const long long j = tok * K + k;
-    const int e = min(max(eid[j], 0), E - 1);
-    const int p = min(max(pos[j], 0), C - 1);
-    const float wk = w[j];
-    const Vec<T, VEC> a =
-        *reinterpret_cast<const Vec<T, VEC>*>(slab + e * se + p * sc);
+    for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
+    for (int k0 = 0; k0 < K; k0 += kWarp) {
+      if (K > kWarp) load_pairs(k0);
+      const int n = min(kWarp, K - k0);
+      int k = 0;
+      for (; k + kGroup <= n; k += kGroup)
+        accumulate<T, VEC, kGroup>(acc, col, active, off, wk, k);
+      if (n - k >= 4) {
+        accumulate<T, VEC, 4>(acc, col, active, off, wk, k);
+        k += 4;
+      }
+      if (n - k >= 2) {
+        accumulate<T, VEC, 2>(acc, col, active, off, wk, k);
+        k += 2;
+      }
+      if (n - k >= 1) accumulate<T, VEC, 1>(acc, col, active, off, wk, k);
+    }
+    if (active) {
+      Vec<T, VEC> o;
 #pragma unroll
-    for (int i = 0; i < VEC; ++i)
-      acc[i] = __fadd_rn(acc[i], __fmul_rn(to_f32(a.v[i]), wk));
+      for (int i = 0; i < VEC; ++i) from_f32(&o.v[i], acc[i]);
+      *reinterpret_cast<Vec<T, VEC>*>(out + tok * D + (long long)j * VEC) = o;
+    }
   }
-  Vec<T, VEC> o;
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) from_f32(&o.v[i], acc[i]);
-  *reinterpret_cast<Vec<T, VEC>*>(out + tok * D + d0) = o;
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
@@ -119,22 +339,24 @@ cudaError_t launch_dispatch(const void* x, const void* slot_src,
                             const void* slot_w, void* out, int G, int S, int E,
                             int C, int D, cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
+  constexpr int kChunk = kChunkBytes / sizeof(T);
   const long long slots = (long long)G * E * C;
   if (slots > 0x7fffffffLL) return cudaErrorInvalidValue;
   const bool vec = D % kVec == 0 && aligned16(x) && aligned16(out);
-  const int per_block = kThreads * (vec ? kVec : 1);
-  const dim3 grid((unsigned)slots, (D + per_block - 1) / per_block);
+  const int EC = E * C;
+  const int runs = (EC + kSlots - 1) / kSlots;
+  const dim3 grid((unsigned)((long long)G * runs), (D + kChunk - 1) / kChunk);
   if (grid.y > 65535) return cudaErrorInvalidValue;
   const T* xs = static_cast<const T*>(x);
   const int32_t* src = static_cast<const int32_t*>(slot_src);
   const float* w = static_cast<const float*>(slot_w);
   T* o = static_cast<T*>(out);
   if (vec)
-    dispatch_kernel<T, kVec><<<grid, kThreads, 0, stream>>>(xs, src, w, o, S,
-                                                           E * C, D);
+    dispatch_kernel<T, true><<<grid, kDispatchThreads, 0, stream>>>(
+        xs, src, w, o, S, EC, D, runs);
   else
-    dispatch_kernel<T, 1><<<grid, kThreads, 0, stream>>>(xs, src, w, o, S,
-                                                        E * C, D);
+    dispatch_kernel<T, false><<<grid, kDispatchThreads, 0, stream>>>(
+        xs, src, w, o, S, EC, D, runs);
   return cudaGetLastError();
 }
 
@@ -148,19 +370,22 @@ cudaError_t launch_combine(const void* buf, const void* eid, const void* pos,
   if (toks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const bool vec = D % kVec == 0 && sg % kVec == 0 && se % kVec == 0 &&
                    sc % kVec == 0 && aligned16(buf) && aligned16(out);
-  const int per_block = kThreads * (vec ? kVec : 1);
-  const dim3 grid((unsigned)toks, (D + per_block - 1) / per_block);
-  if (grid.y > 65535) return cudaErrorInvalidValue;
+  const long long nvec = vec ? D / kVec : D;
+  // two warps a block, one when that leaves fewer than 256 blocks
+  const int threads =
+      toks * ((nvec + 2 * kWarp - 1) / (2 * kWarp)) < 256 ? kWarp : 2 * kWarp;
+  const long long chunks = (nvec + threads - 1) / threads;
+  const dim3 grid((unsigned)toks, (unsigned)(chunks < 65535 ? chunks : 65535));
   const T* b = static_cast<const T*>(buf);
   const int32_t* e = static_cast<const int32_t*>(eid);
   const int32_t* p = static_cast<const int32_t*>(pos);
   const float* ws = static_cast<const float*>(w);
   T* o = static_cast<T*>(out);
   if (vec)
-    combine_kernel<T, kVec><<<grid, kThreads, 0, stream>>>(
+    combine_kernel<T, kVec><<<grid, threads, 0, stream>>>(
         b, e, p, ws, o, S, K, E, C, D, sg, se, sc);
   else
-    combine_kernel<T, 1><<<grid, kThreads, 0, stream>>>(
+    combine_kernel<T, 1><<<grid, threads, 0, stream>>>(
         b, e, p, ws, o, S, K, E, C, D, sg, se, sc);
   return cudaGetLastError();
 }

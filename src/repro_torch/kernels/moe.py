@@ -11,7 +11,9 @@ with no device→host sync, so a decode step stays free of them.  The
 D-wide row movement has two implementations each:
 
 * :func:`dispatch_slot` / :func:`combine_slot` — plain PyTorch gathers,
-  the CPU path and the reference the kernels are held against;
+  the CPU path and the reference the kernels are held against
+  (:func:`combine_slot_ordered` sums in the kernel's order, for bit-exact
+  checks);
 * :func:`moe_dispatch_cuda` / :func:`moe_combine_cuda` — the hand-written
   Hopper kernels of ``csrc/moe.cu``, CUDA tensors only.
 
@@ -114,6 +116,23 @@ def combine_slot(buf, eid, pos, w):
     return (picked * w[..., None].to(buf.dtype)).sum(dim=2)
 
 
+def combine_slot_ordered(buf, eid, pos, w):
+    """:func:`combine_slot` with the kernel's rounding: the sum over k runs
+    in k order into a float32 accumulator that starts at 0, one rounded
+    product and one rounded add a step, and is cast to buf's dtype once
+    (``combine_slot``'s ``.sum(dim=2)`` promises no order).  The CUDA
+    kernel's float32 result is bit-equal to it."""
+    G, E, C, _ = buf.shape
+    rows = torch.arange(G, device=buf.device)[:, None, None]
+    picked = buf[rows, eid.long().clamp(0, E - 1),
+                 pos.long().clamp(0, C - 1)].float()       # (G, S, K, D)
+    w = w.float()
+    acc = torch.zeros_like(picked[:, :, 0])
+    for k in range(eid.shape[-1]):
+        acc = acc + picked[:, :, k] * w[:, :, k, None]
+    return acc.to(buf.dtype)
+
+
 # --------------------------------------------------------------------------
 # the CUDA kernels' wrappers
 # --------------------------------------------------------------------------
@@ -122,19 +141,24 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FNS = None
 
 
+def bind(lib):
+    """(dispatch, combine, error string) of a loaded ``moe`` library, with
+    their C signatures set."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.moe_dispatch.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
+    lib.moe_dispatch.restype = i32
+    lib.moe_combine.argtypes = ([ptr] * 5 + [i32] * 6
+                                + [ctypes.c_longlong] * 3 + [i32, ptr])
+    lib.moe_combine.restype = i32
+    lib.moe_error_string.argtypes = [i32]
+    lib.moe_error_string.restype = ctypes.c_char_p
+    return lib.moe_dispatch, lib.moe_combine, lib.moe_error_string
+
+
 def _kernel_fns():
     global _FNS
     if _FNS is None:
-        lib = _build.load("moe")
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.moe_dispatch.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
-        lib.moe_dispatch.restype = i32
-        lib.moe_combine.argtypes = ([ptr] * 5 + [i32] * 6
-                                    + [ctypes.c_longlong] * 3 + [i32, ptr])
-        lib.moe_combine.restype = i32
-        lib.moe_error_string.argtypes = [i32]
-        lib.moe_error_string.restype = ctypes.c_char_p
-        _FNS = (lib.moe_dispatch, lib.moe_combine, lib.moe_error_string)
+        _FNS = bind(_build.load("moe"))
     return _FNS
 
 

@@ -246,6 +246,94 @@ def test_moe_combine_reads_a_strided_slab(cuda, dtype, G, S, D, E, K, cf):
                                atol=MOE_TOL[dtype], rtol=0)
 
 
+#: (label, G, S, D, E, K, cf, dtype, layout): every path of both kernels.
+#: layout: "contiguous"; "strided", the slab as the expert product leaves
+#: it (a (G, E, C, D) view of (E, G, C, D) storage); "odd strides", a slab
+#: whose g/e/c strides are not multiples of 4; "misaligned", x and the slab
+#: starting one element into their storage (4 or 2 bytes off 16)
+MOE_PATH_CASES = [
+    ("olmoe decode", 4, 1, 2048, 64, 8, 1.25, torch.float32, "contiguous"),
+    ("olmoe decode", 4, 1, 2048, 64, 8, 1.25, torch.float32, "strided"),
+    ("olmoe decode", 4, 1, 2048, 64, 8, 1.25, torch.bfloat16, "contiguous"),
+    ("olmoe prefill", 1, 512, 2048, 64, 8, 1.25, torch.float32,
+     "contiguous"),
+    ("olmoe prefill", 1, 512, 2048, 64, 8, 1.25, torch.float32, "strided"),
+    ("D 2046", 2, 24, 2046, 8, 2, 1.25, torch.float32, "contiguous"),
+    ("D 2044", 2, 24, 2044, 8, 2, 1.25, torch.bfloat16, "contiguous"),
+    ("partial column chunk", 2, 24, 1500, 8, 2, 1.25, torch.float32,
+     "contiguous"),
+    ("misaligned", 2, 24, 256, 8, 2, 1.25, torch.float32, "misaligned"),
+    ("misaligned", 2, 24, 256, 8, 2, 1.25, torch.bfloat16, "misaligned"),
+    ("odd strides", 2, 24, 64, 8, 2, 1.25, torch.float32, "odd strides"),
+    ("odd strides", 2, 24, 64, 8, 2, 1.25, torch.bfloat16, "odd strides"),
+    ("K 1", 2, 32, 128, 8, 1, 1.25, torch.float32, "contiguous"),
+    ("K 8 = E", 1, 16, 128, 8, 8, 2.0, torch.float32, "contiguous"),
+    ("K 12 E 16", 2, 20, 128, 16, 12, 1.25, torch.float32, "contiguous"),
+    ("K 12 E 16", 2, 20, 128, 16, 12, 1.25, torch.bfloat16, "strided"),
+    ("K 40 E 64", 1, 16, 64, 64, 40, 1.25, torch.float32, "contiguous"),
+    ("drops cf 0.25", 2, 32, 128, 4, 1, 0.25, torch.float32, "contiguous"),
+]
+
+
+def _moe_layout(t, layout, permuted):
+    """``t`` (contiguous) laid out as ``layout`` asks, same values."""
+    if layout == "misaligned":
+        base = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = base[1:].view(t.shape).copy_(t)
+        assert out.is_contiguous() and out.data_ptr() % 16
+        return out
+    if layout == "strided" and permuted:
+        # with G = 1 (a prefill's one routing group) the view is contiguous
+        out = t.transpose(0, 1).contiguous().transpose(0, 1)
+        assert t.shape[0] == 1 or not out.is_contiguous()
+        return out
+    if layout == "odd strides" and permuted:
+        G, E, C, D = t.shape       # D even: every stride below is odd
+        sc = D + 1
+        sg = C * sc + 1
+        se = G * sg + 1
+        st = torch.empty(E * se, dtype=t.dtype, device=t.device)
+        out = st.as_strided((G, E, C, D), (sg, se, sc, 1))
+        out.copy_(t)
+        assert all(s % 4 for s in out.stride()[:3])
+        return out
+    return t
+
+
+@pytest.mark.parametrize("label,G,S,D,E,K,cf,dtype,layout", MOE_PATH_CASES)
+def test_moe_kernels_bit_equal_on_every_path(cuda, label, G, S, D, E, K, cf,
+                                             dtype, layout):
+    """Each path of both kernels (fast and fallback, every K group, drops)
+    against the plain versions: dispatch bit-equal to ``dispatch_slot``
+    formed in float32 and cast once; combine bit-equal to
+    ``combine_slot_ordered`` (k in order into a float32 accumulator, cast
+    once); bfloat16 also within 5e-2 of the slot versions; each call one
+    launch; both bit-equal on repeat."""
+    x, src, sw, eid, pos, w, C = _moe_inputs(G, S, D, E, K, cf, dtype, cuda)
+    x = _moe_layout(x, layout, permuted=False)
+    n = (mk.moe_dispatch_cuda.launches, mk.moe_combine_cuda.launches)
+    buf = mk.moe_dispatch_cuda(x, src, sw)
+    assert mk.moe_dispatch_cuda.launches == n[0] + 1
+    want = mk.dispatch_slot(x.float(), src, sw).to(dtype)
+    torch.cuda.synchronize()
+    assert buf.shape == (G, E, C, D) and torch.equal(buf, want), label
+    torch.testing.assert_close(buf.float(), mk.dispatch_slot(x, src,
+                                                             sw).float(),
+                               atol=MOE_TOL[dtype], rtol=0)
+    assert torch.equal(mk.moe_dispatch_cuda(x, src, sw), buf)
+
+    slab = _moe_layout(buf, layout, permuted=True)
+    y = mk.moe_combine_cuda(slab, eid, pos, w)
+    assert mk.moe_combine_cuda.launches == n[1] + 1
+    torch.cuda.synchronize()
+    assert y.shape == (G, S, D)
+    assert torch.equal(y, mk.combine_slot_ordered(buf, eid, pos, w)), label
+    torch.testing.assert_close(y.float(),
+                               mk.combine_slot(buf, eid, pos, w).float(),
+                               atol=MOE_TOL[dtype], rtol=0)
+    assert torch.equal(mk.moe_combine_cuda(slab, eid, pos, w), y)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_moe_kernels_clamp_out_of_range_indices(cuda, dtype):
     """Source rows, expert ids and positions outside the arrays (negative

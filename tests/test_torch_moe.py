@@ -167,6 +167,52 @@ def test_dispatch_and_combine_slot_match_reference(G, S, D, E, K, cf,
                                    rtol=0)
 
 
+@pytest.mark.parametrize("G,S,D,E,K,cf", SWEEP[:5])
+def test_combine_slot_ordered_matches_combine_slot_and_reference(G, S, D, E,
+                                                                 K, cf):
+    """The k-ordered plain combine (the CUDA kernel's rounding) against
+    ``combine_slot`` and the reference's interpret-mode Pallas combine,
+    float32 at atol 1e-6 (the same products summed in another order or
+    with fused multiply-adds), and bit for bit against the same sum written
+    as a numpy float32 loop: one rounded product and one rounded add per
+    k, from 0, in k order.  In bfloat16 it casts once: it equals its own
+    float32 result on the bf16 slab, cast."""
+    x, src, sw, eid, pos, w, C = _slot_inputs(G, S, D, E, K, cf)
+    buf = np.array(jmk.dispatch_slot(jnp.asarray(x), jnp.asarray(src),
+                                     jnp.asarray(sw)))
+    args = [torch.from_numpy(a) for a in (eid, pos, w)]
+    got = tmk.combine_slot_ordered(torch.from_numpy(buf), *args)
+    assert got.dtype == torch.float32 and got.shape == (G, S, D)
+    picked = buf[np.arange(G)[:, None, None], eid, pos]     # (G, S, K, D)
+    acc = np.zeros((G, S, D), np.float32)
+    for k in range(K):
+        acc = acc + picked[:, :, k] * w[:, :, k, None]
+    np.testing.assert_array_equal(got.numpy(), acc)
+    for want in (tmk.combine_slot(torch.from_numpy(buf), *args).numpy(),
+                 jmk.combine_pallas(jnp.asarray(buf), jnp.asarray(eid),
+                                    jnp.asarray(pos), jnp.asarray(w),
+                                    interpret=True)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6,
+                                   rtol=0)
+    bt = torch.from_numpy(buf).to(torch.bfloat16)
+    torch.testing.assert_close(
+        tmk.combine_slot_ordered(bt, *args),
+        tmk.combine_slot_ordered(bt.float(), *args).to(torch.bfloat16),
+        atol=0, rtol=0)
+
+
+def test_combine_slot_ordered_clamps_as_combine_slot():
+    r = np.random.default_rng(4)
+    G, S, D, E, C, K = 2, 5, 8, 4, 8, 3
+    buf = torch.from_numpy(r.standard_normal((G, E, C, D)).astype(np.float32))
+    eid = torch.from_numpy(r.integers(-2, E + 3, (G, S, K)).astype(np.int32))
+    pos = torch.from_numpy(r.integers(-2, C + 5, (G, S, K)).astype(np.int32))
+    w = torch.from_numpy(r.random((G, S, K)).astype(np.float32))
+    torch.testing.assert_close(tmk.combine_slot_ordered(buf, eid, pos, w),
+                               tmk.combine_slot(buf, eid, pos, w), atol=1e-6,
+                               rtol=0)
+
+
 def test_plain_versions_clamp_out_of_range_indices_as_jax_does():
     """Source rows past S-1, expert ids past E-1 and positions past C-1
     read the last row, as a JAX gather clamps them (the CUDA kernels
