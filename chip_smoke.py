@@ -52,8 +52,8 @@ result lines:
              16 per decode step and per prefill, paged decode 16 per
              decode step), a teacher-forced prefill and ``decode_step``
              through the kernels against the plain versions, and a
-             profiled decode step split by kernel, with each MoE kernel's
-             time per call in the step;
+             profiled decode step and a profiled 512-token prefill split
+             by kernel, with each MoE kernel's time per call in them;
 8. train   — ``train("llama3.2-1b", reduced=False)`` on the card, float32
              with AdamW state on the card: 3 steps of 8 x 2048 tokens in
              microbatches of 4, counting the flash launches of every layer
@@ -82,15 +82,16 @@ result lines:
              decode also in bfloat16 and at the llama serve shape; the
              float32 flash bounds at both the CUDA-core and the 3xTF32
              tensor-core rate (the lower time is the bound); the MoE
-             kernels with median, min and p90 of their calls beside an
-             empty kernel timed the same way, combine also on the strided
-             slab.
+             kernels with median, min and p90 of their cold calls and a
+             warm (back to back) time beside an empty kernel timed the
+             same way, combine also on the strided slab.
 
-    python3 chip_smoke.py --moe-baseline OLD_MOE_CU
+    python3 chip_smoke.py --baseline OLD/moe.cu [--baseline ...]
 
-builds an earlier ``moe.cu`` beside the kernels, checks that the MoE
-kernels give its bits, and times the two designs in turns (previous, this,
-this, previous).
+builds each given earlier kernel source (named as its ``csrc/<name>.cu``)
+beside the kernels and compares the two builds in turns: the olmoe decode
+and prefill profiles (this, previous, this) and the timed kernels
+(previous, this, this, previous).
 
 It then prints one ``{"kernels": [...]}`` JSON line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Imports neither jax nor the JAX
@@ -102,6 +103,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import statistics
@@ -289,15 +291,13 @@ def same_bits(torch, a, b) -> bool:
         a.view(as_int[a.dtype]), b.view(as_int[b.dtype]))
 
 
-def phase_moe_kernels(torch, mk, baseline=None):
+def phase_moe_kernels(torch, mk):
     """Both MoE kernels against their plain versions on MOE_CASES and with
     out-of-range indices: within MOE_TOL of ``dispatch_slot`` /
     ``combine_slot``, and bit for bit equal to the plain versions with the
     kernels' rounding (dispatch formed in float32 and cast once, which in
     float32 is ``dispatch_slot`` itself; ``combine_slot_ordered``), for the
-    contiguous and the strided slab, and to their own second launch.
-    ``baseline``: the entry points of an earlier ``moe.cu``, whose outputs
-    the kernels must equal bit for bit."""
+    contiguous and the strided slab, and to their own second launch."""
     from repro_torch.nn import moe as nn_moe
 
     worst = {k: {"float32": 0.0, "bfloat16": 0.0}
@@ -340,14 +340,6 @@ def phase_moe_kernels(torch, mk, baseline=None):
                   want)
             exact(f"combine {label}{how} on repeat", dname,
                   mk.moe_combine_cuda(slab, eid, pos, w), y)
-        if baseline is not None:
-            with moe_fns(mk, baseline):
-                old = (mk.moe_dispatch_cuda(x, src, sw),
-                       mk.moe_combine_cuda(strided, eid, pos, w))
-            exact(f"dispatch {label} vs the previous design", dname, old[0],
-                  buf)
-            exact(f"combine {label} vs the previous design", dname, old[1],
-                  want)
         return buf
 
     for label, G, S, D, E, K, cf in MOE_CASES:
@@ -388,8 +380,7 @@ def phase_moe_kernels(torch, mk, baseline=None):
             f"(atol 1e-5), bfloat16 {err['bfloat16']:.3e} (atol 5e-2)")
     say("kernels", f"MoE bit-exact checks: {n_exact} passed (float32 and "
         "bfloat16: dispatch = dispatch_slot formed in float32, combine = "
-        "combine_slot_ordered, contiguous and strided slab, each on repeat"
-        + ("; both = the previous design" if baseline else "") + ")")
+        "combine_slot_ordered, contiguous and strided slab, each on repeat)")
     return worst
 
 
@@ -1096,20 +1087,13 @@ def device_split(torch, prof, steps: int, label: str, calls=None):
             {n: t / 1e3 / steps for n, t in split.items()}, launches / steps)
 
 
-def phase_profile(torch, state, label: str, steps: int = 8):
-    """Host clock of ``steps`` decode steps at full width (4 slots, KV
-    lengths 77-512) beside the device time the profiler sees in them,
-    split by kernel."""
+def profile_split(torch, run, label: str, what: str, steps: int):
+    """``run()`` (``steps`` of ``what``) once to warm up, once on the host
+    clock and once under ``torch.profiler``: prints the host clock a step
+    beside the device time the profiler sees, split by kernel, and returns
+    each MoE kernel's device time per call in it (L2 as the layers around
+    it leave it)."""
     from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.models import decoder as dec
-
-    params, cfg_p, cache, tok = state
-
-    def run():
-        dec.decode_loop(params, cfg_p, tok, cache, 0, steps,
-                        compute_dtype=torch.float32)
-        torch.cuda.synchronize()
 
     run()
     t0 = time.perf_counter()
@@ -1123,20 +1107,52 @@ def phase_profile(torch, state, label: str, steps: int = 8):
     idle = 1.0 - dev_ms / wall_ms
     parts = ", ".join(f"{n} {t:.3f}" for n, t in split.items()
                       if t or n in ("matmul", "paged_decode", "rest"))
-    say("profile", f"{label} decode step at full width, 4 slots: host clock "
-        f"{wall_ms:.2f} ms/step; device busy {dev_ms:.3f} ms/step ({parts}); "
-        f"device idle share {idle:.3f}; {launches:.0f} kernel "
-        f"launches/step")
-    # each MoE kernel's time per call inside the step (L2 warm from the
-    # layers around it)
+    say("profile", f"{label} {what}: host clock {wall_ms:.2f} ms/step; "
+        f"device busy {dev_ms:.3f} ms/step ({parts}); device idle share "
+        f"{idle:.3f}; {launches:.0f} kernel launches/step")
     per_call = {n: split[n] * steps / calls[n] for n in ("moe_dispatch",
                                                          "moe_combine")
                 if calls[n]}
     if per_call:
-        say("profile", f"{label} in-path time per call: " + ", ".join(
+        say("profile", f"{label} {what}, time per call: " + ", ".join(
             f"{n} {t:.4f} ms ({calls[n]} calls)" for n, t in
             per_call.items()))
     return per_call
+
+
+def phase_profile(torch, state, label: str, steps: int = 8):
+    """``steps`` decode steps at full width (4 slots, KV lengths 77-512),
+    split by kernel (:func:`profile_split`)."""
+    from repro_torch.models import decoder as dec
+
+    params, cfg_p, cache, tok = state
+
+    def run():
+        dec.decode_loop(params, cfg_p, tok, cache, 0, steps,
+                        compute_dtype=torch.float32)
+        torch.cuda.synchronize()
+
+    return profile_split(torch, run, label,
+                         "decode step at full width, 4 slots", steps)
+
+
+def phase_prefill_profile(torch, state, label: str, reps: int = 4):
+    """``reps`` prefills of one 512-token prompt at full width (the MoE
+    layers' routing group is the timing phase's prefill shape, G 1 S 512),
+    split by kernel (:func:`profile_split`)."""
+    from repro_torch.models import decoder as dec
+
+    params, cfg_p = state[:2]
+    cache, prompts, lens = teacher_forced_inputs(torch, dec, cfg_p, [512])
+
+    def run():
+        for _ in range(reps):
+            dec.prefill(params, cfg_p, prompts, cache, lengths=lens,
+                        compute_dtype=torch.float32)
+        torch.cuda.synchronize()
+
+    return profile_split(torch, run, label, "512-token prefill at full "
+                         "width", reps)
 
 
 # --------------------------------------------------------------------------
@@ -1607,51 +1623,92 @@ def fmt_spread(sp) -> str:
             f"{sp['p90']:.4f})")
 
 
-@contextlib.contextmanager
-def moe_fns(mk, fns):
-    """Launch the MoE wrappers through the entry points ``fns`` (another
-    build of ``moe.cu``, from :func:`build_baseline`) inside the block."""
-    saved = mk._kernel_fns()
-    mk._FNS = fns
-    try:
-        yield
-    finally:
-        mk._FNS = saved
-
-
-def build_baseline(mk, source: str):
-    """The entry points of another ``moe.cu`` (an earlier design of the
-    kernels, e.g. ``git show <commit>:src/repro_torch/kernels/csrc/moe.cu``
-    saved outside the package), built with the port's nvcc flags into the
-    build directory."""
+def build_earlier(sources) -> dict:
+    """Each of ``sources`` (earlier versions of kernel sources, each named
+    as its ``csrc/<name>.cu``, e.g. ``git show
+    <commit>:src/repro_torch/kernels/csrc/moe.cu`` saved outside the
+    package) built with the port's nvcc flags into the build directory,
+    one ``nvcc`` each, all started together: {name: loaded library}."""
     import ctypes
     import hashlib
 
     from repro_torch.kernels import _build
 
-    path = Path(source).resolve()
-    check(path.is_file(), f"--moe-baseline {source}: no such file")
-    digest = hashlib.sha256(path.read_bytes()).hexdigest()[:16]
-    lib = _build.BUILD_DIR / f"libmoe-baseline-{digest}.so"
+    procs = {}
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
-                           str(lib), str(path)], capture_output=True,
-                          text=True, timeout=600)
-    check(proc.returncode == 0, f"nvcc failed on {path}:\n{proc.stdout}"
-          f"{proc.stderr}")
-    return mk.bind(ctypes.CDLL(str(lib)))
+    for source in sources:
+        path = Path(source).resolve()
+        check(path.is_file(), f"--baseline {source}: no such file")
+        check(path.stem in KERNELS, f"--baseline {source}: the file name is "
+              f"none of the kernel sources {KERNELS}")
+        digest = hashlib.sha256(path.read_bytes()).hexdigest()[:16]
+        lib = _build.BUILD_DIR / f"lib{path.stem}-earlier-{digest}.so"
+        procs[path.stem] = (lib, subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
+             str(path)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    libs = {}
+    for name, (lib, proc) in procs.items():
+        out = proc.communicate(timeout=600)[0]
+        check(proc.returncode == 0, f"nvcc failed on the earlier {name}.cu:"
+              f"\n{out}")
+        libs[name] = ctypes.CDLL(str(lib))
+    return libs
 
 
-def phase_moe_timing(torch, mk, baseline=None):
+@contextlib.contextmanager
+def earlier_kernels(modules, libs):
+    """Inside the block, each kernel of ``libs`` (from
+    :func:`build_earlier`) launches from the earlier library: the build
+    cache hands it out and the wrappers' module (``modules[name]``) binds
+    its entry points anew, on entering and again on leaving."""
+    from repro_torch.kernels import _build
+
+    saved = {name: _build.load(name) for name in libs}
+    _build._LIBS.update(libs)
+    for name in libs:
+        modules[name]._FNS = None
+    try:
+        yield
+    finally:
+        _build._LIBS.update(saved)
+        for name in libs:
+            modules[name]._FNS = None
+
+
+def time_turns(torch, fn, args, flush, earlier=None) -> dict:
+    """``fn(*args)`` timed in turns with the earlier kernels (``earlier``:
+    a function that returns :func:`earlier_kernels`' block, or None):
+    previous, this, this, previous, else this, this.  A turn times 30
+    calls with L2 flushed before each (:func:`time_cold`) and then calls
+    back to back with L2 warm (:func:`time_ms`).  Returns, for "this"
+    and "previous", the spread of the cold calls, the median of the warm
+    turns, and each turn's cold median."""
+    turns = (("previous", "this", "this", "previous") if earlier
+             else ("this", "this"))
+    cold = {who: [] for who in turns}
+    warm = {who: [] for who in turns}
+    medians = []
+    for who in turns:
+        with earlier() if who == "previous" else contextlib.nullcontext():
+            t = time_cold(torch, fn, args, flush)
+            warm[who].append(time_ms(torch, fn, [args]))
+        cold[who] += t
+        medians.append(f"{who} {statistics.median(t):.4f}")
+    return {who: {**spread(cold[who]), "warm": statistics.median(warm[who])}
+            for who in cold} | {"turns": ", ".join(medians)}
+
+
+def phase_moe_timing(torch, mk, earlier=None):
     """Both MoE kernels at olmoe-1b-7b's decode (4 slots, one token each)
     and 512-token prefill shapes, float32, with L2 flushed before each
     call (:func:`time_cold`): combine on the contiguous slab and on the
-    strided slab the expert product hands it.  Each is timed in turns with
-    the ``baseline`` design when one is given (previous, this, this,
-    previous; 30 calls a turn), else in two turns of its own, and reported
-    as median, min and p90 over its calls, beside an empty kernel timed
-    the same way (``torch.cuda._sleep(0)``: the floor of one event-timed
-    launch), the least bytes each function needs at 3.35 TB/s, the plain
+    strided slab the expert product hands it.  Each is timed by
+    :func:`time_turns` (in turns with the ``earlier`` kernels when given)
+    and reported as median, min and p90 over its cold calls and its warm
+    time, beside an empty kernel timed the same way
+    (``torch.cuda._sleep(0)``: the floor of one event-timed launch), the
+    least bytes each function needs at 3.35 TB/s, the plain
     version's time and one library call that computes the same function:
     ``F.embedding_bag`` in sum mode with per-sample weights over the
     flattened rows (dispatch: bags of one source row weighted by slot_w;
@@ -1670,9 +1727,8 @@ def phase_moe_timing(torch, mk, baseline=None):
     floor = spread(time_cold(torch, torch.cuda._sleep, (0,), flush))
     say("timing", f"empty kernel (torch.cuda._sleep(0)), L2 flushed, event "
         f"timed: {fmt_spread(floor)}")
-    turns = ("previous", "this", "this", "previous") if baseline else (
-        "this", "this")
-    res = {"moe_dispatch": {}, "moe_combine": {}, "floor": floor}
+    res = {"moe_dispatch": {"spread": {}}, "moe_combine": {"spread": {}},
+           "floor": floor}
     el, D = 4, 2048
     for shape, G, S in (("decode", 4, 1), ("prefill", 1, 512)):
         x, src, sw, eid, pos, w, C = moe_inputs(
@@ -1717,28 +1773,20 @@ def phase_moe_timing(torch, mk, baseline=None):
             bound = max(t_bytes, t_ops)
             by = "bytes" if t_bytes >= t_ops else "operations"
             for how, a in variants:
-                times = {"this": [], "previous": []}
-                medians = []
-                for who in turns:
-                    with (moe_fns(mk, baseline) if who == "previous"
-                          else contextlib.nullcontext()):
-                        t = time_cold(torch, fn, a, flush)
-                    times[who] += t
-                    medians.append(f"{who} {statistics.median(t):.4f}")
-                this = spread(times["this"])
-                prev = spread(times["previous"]) if baseline else None
-                res[name][shape + how.replace(" ", "_")] = {
-                    "this": this, "previous": prev}
+                tt = time_turns(torch, fn, a, flush, earlier)
+                res[name]["spread"][shape + how.replace(" ", "_")] = tt["this"]
                 say("timing", f"{name}{how} at olmoe {shape} G{G} S{S} E{E} "
-                    f"K{K} C{C} D{D} float32: kernel {fmt_spread(this)}"
-                    + (f", previous design {fmt_spread(prev)}" if prev
-                       else "") + f"; turn medians {', '.join(medians)}; "
+                    f"K{K} C{C} D{D} float32: kernel {fmt_spread(tt['this'])}"
+                    f", warm {tt['this']['warm']:.4f} ms" + (
+                        f"; previous kernels {fmt_spread(tt['previous'])}, "
+                        f"warm {tt['previous']['warm']:.4f} ms"
+                        if earlier else "") + f"; turn medians {tt['turns']}; "
                     f"empty-kernel floor {floor['median']:.4f} ms, bound "
                     f"{bound:.4f} ms ({by}: {nbytes} bytes)")
-            kern = res[name][shape]["this"]["median"]
+            kern = res[name]["spread"][shape]["median"]
             plain_ms = time_cold_ms(torch, plain, args, flush)
             lib_ms = time_cold_ms(torch, bag, lib_args, flush)
-            res[name][shape].update(
+            res[name][shape] = dict(
                 ms=kern, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                 library_ms=lib_ms, bytes=nbytes)
             say("timing", f"{name} at olmoe {shape}: kernel {kern:.4f} ms, "
@@ -1897,9 +1945,10 @@ def phase_bag_timing(torch, bk):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--moe-baseline", metavar="MOE_CU",
-                    help="an earlier moe.cu: the MoE kernels are checked bit "
-                         "for bit against it and timed in turns with it")
+    ap.add_argument("--baseline", metavar="NAME.cu", action="append",
+                    default=[],
+                    help="an earlier version of csrc/NAME.cu (repeatable): "
+                         "profiled and timed in turns with the current one")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a "
@@ -1948,11 +1997,14 @@ def main(argv=None) -> int:
                 "flash_bwd_dkdv": fk.flash_bwd_dkdv_cuda,
                 "flash_bwd_dq": fk.flash_bwd_dq_cuda}
 
+    modules = dict(zip(KERNELS, (pk, mk, fk, bk)))
+    libs = build_earlier(args.baseline)
+    earlier = (functools.partial(earlier_kernels, modules, libs) if libs
+               else None)
+
     # 3. kernels against their plain versions
     worst = phase_kernels(torch, pk)
-    baseline = (build_baseline(mk, args.moe_baseline)
-                if args.moe_baseline else None)
-    moe_worst = phase_moe_kernels(torch, mk, baseline)
+    moe_worst = phase_moe_kernels(torch, mk)
     moe_bwd = phase_moe_backward(torch, mk)
     flash_worst = phase_flash_kernels(torch, fk)
     bag_worst = phase_bag_kernels(torch, bk)
@@ -1968,11 +2020,14 @@ def main(argv=None) -> int:
 
     # 7. olmoe-1b-7b
     moe_launches, state = phase_moe(torch, counters)
-    moe_in_path = phase_profile(torch, state, "olmoe-1b-7b")
-    if baseline is not None:      # in turns: this, previous, this
-        with moe_fns(mk, baseline):
-            phase_profile(torch, state, "olmoe-1b-7b, previous MoE design")
-        phase_profile(torch, state, "olmoe-1b-7b")
+    moe_in_path = {}
+    for what, prof in (("decode", phase_profile),
+                       ("prefill", phase_prefill_profile)):
+        moe_in_path[what] = prof(torch, state, "olmoe-1b-7b")
+        if earlier:               # in turns: this, previous, this
+            with earlier():
+                prof(torch, state, "olmoe-1b-7b, previous kernels")
+            prof(torch, state, "olmoe-1b-7b")
     del state
     torch.cuda.empty_cache()
 
@@ -1989,7 +2044,7 @@ def main(argv=None) -> int:
 
     # 12. timing
     timing = phase_timing(torch, pk)
-    moe_timing = phase_moe_timing(torch, mk, baseline)
+    moe_timing = phase_moe_timing(torch, mk, earlier)
     flash_timing = phase_flash_timing(torch, fk)
     bag_timing = phase_bag_timing(torch, bk)
 
@@ -2025,13 +2080,13 @@ def main(argv=None) -> int:
             **{k: t["decode"][k] for k in TIMED},
             "shape": "olmoe-1b-7b decode, G4 S1 E64 K8 C8 D2048",
             "prefill": {k: t["prefill"][k] for k in TIMED},
-            # median / min / p90 of this design and the previous one (null
-            # without --moe-baseline), the empty-kernel floor, and the
-            # in-path time per call of the olmoe decode profile (warm L2)
-            "spread": {shape: {who: v[who] for who in ("this", "previous")}
-                       for shape, v in t.items()},
+            # median / min / p90 of the cold calls and the warm time, the
+            # empty-kernel floor, and the time per call in the olmoe
+            # decode and prefill profiles
+            "spread": t["spread"],
             "floor_ms": moe_timing["floor"]["median"],
-            "in_path_ms": moe_in_path.get(kname),
+            "in_path_ms": {what: per_call.get(kname)
+                           for what, per_call in moe_in_path.items()},
         })
     for kname in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
         t = flash_timing[kname]

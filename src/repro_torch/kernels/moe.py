@@ -141,24 +141,19 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FNS = None
 
 
-def bind(lib):
-    """(dispatch, combine, error string) of a loaded ``moe`` library, with
-    their C signatures set."""
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.moe_dispatch.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
-    lib.moe_dispatch.restype = i32
-    lib.moe_combine.argtypes = ([ptr] * 5 + [i32] * 6
-                                + [ctypes.c_longlong] * 3 + [i32, ptr])
-    lib.moe_combine.restype = i32
-    lib.moe_error_string.argtypes = [i32]
-    lib.moe_error_string.restype = ctypes.c_char_p
-    return lib.moe_dispatch, lib.moe_combine, lib.moe_error_string
-
-
 def _kernel_fns():
     global _FNS
     if _FNS is None:
-        _FNS = bind(_build.load("moe"))
+        lib = _build.load("moe")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.moe_dispatch.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
+        lib.moe_dispatch.restype = i32
+        lib.moe_combine.argtypes = ([ptr] * 5 + [i32] * 6
+                                    + [ctypes.c_longlong] * 3 + [i32, ptr])
+        lib.moe_combine.restype = i32
+        lib.moe_error_string.argtypes = [i32]
+        lib.moe_error_string.restype = ctypes.c_char_p
+        _FNS = (lib.moe_dispatch, lib.moe_combine, lib.moe_error_string)
     return _FNS
 
 

@@ -234,7 +234,7 @@ def paged_decode_gather(q, k_pages, v_pages, page_table, q_pos, *,
 #: head dims the kernel is built for
 KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_FN = None
+_FNS = None
 
 #: blocks the split count aims at per SM, and the fewest pages a split
 #: gets (one for each of a block's 4 warps)
@@ -268,8 +268,8 @@ def _sm_count(device) -> int:
 
 
 def _kernel_fn():
-    global _FN
-    if _FN is None:
+    global _FNS
+    if _FNS is None:
         lib = _build.load("paged_decode")
         fn = lib.paged_decode
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
@@ -278,8 +278,8 @@ def _kernel_fn():
         fn.restype = ctypes.c_int
         lib.paged_decode_error_string.argtypes = [ctypes.c_int]
         lib.paged_decode_error_string.restype = ctypes.c_char_p
-        _FN = (fn, lib.paged_decode_error_string)
-    return _FN
+        _FNS = (fn, lib.paged_decode_error_string)
+    return _FNS
 
 
 def paged_decode_cuda(q, k_pages, v_pages, page_table, q_pos, *,

@@ -246,7 +246,9 @@ def test_moe_combine_reads_a_strided_slab(cuda, dtype, G, S, D, E, K, cf):
                                atol=MOE_TOL[dtype], rtol=0)
 
 
-#: (label, G, S, D, E, K, cf, dtype, layout): every path of both kernels.
+#: (label, G, S, D, E, K, cf, dtype, layout): every path of both kernels
+#: (dispatch: tiles of 8 slots for groups under 8 tokens, else 4; combine:
+#: one-warp blocks when the blocks are few, else four-warp blocks).
 #: layout: "contiguous"; "strided", the slab as the expert product leaves
 #: it (a (G, E, C, D) view of (E, G, C, D) storage); "odd strides", a slab
 #: whose g/e/c strides are not multiples of 4; "misaligned", x and the slab
@@ -255,6 +257,10 @@ MOE_PATH_CASES = [
     ("olmoe decode", 4, 1, 2048, 64, 8, 1.25, torch.float32, "contiguous"),
     ("olmoe decode", 4, 1, 2048, 64, 8, 1.25, torch.float32, "strided"),
     ("olmoe decode", 4, 1, 2048, 64, 8, 1.25, torch.bfloat16, "contiguous"),
+    ("olmoe decode", 4, 1, 2048, 64, 8, 1.25, torch.bfloat16, "misaligned"),
+    ("decode D 2046", 4, 1, 2046, 64, 8, 1.25, torch.float32, "contiguous"),
+    ("groups of 5 tokens, partial tile", 3, 5, 256, 6, 2, 1.0,
+     torch.float32, "contiguous"),
     ("olmoe prefill", 1, 512, 2048, 64, 8, 1.25, torch.float32,
      "contiguous"),
     ("olmoe prefill", 1, 512, 2048, 64, 8, 1.25, torch.float32, "strided"),
@@ -332,6 +338,40 @@ def test_moe_kernels_bit_equal_on_every_path(cuda, label, G, S, D, E, K, cf,
                                mk.combine_slot(buf, eid, pos, w).float(),
                                atol=MOE_TOL[dtype], rtol=0)
     assert torch.equal(mk.moe_combine_cuda(slab, eid, pos, w), y)
+
+
+def test_chip_smoke_baseline_launches_the_earlier_build(cuda, tmp_path):
+    """``chip_smoke.py --baseline``: an earlier kernel source, built beside
+    the kernels, is what the wrappers launch inside ``earlier_kernels``,
+    and the current build is again after it (here the earlier source is
+    the current ``moe.cu`` with a comment appended, so the bits agree)."""
+    import ctypes
+    import sys
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    def addr(fn):
+        return ctypes.cast(fn, ctypes.c_void_p).value
+
+    old = tmp_path / "moe.cu"
+    old.write_text((_build.CSRC / "moe.cu").read_text() + "// earlier\n")
+    libs = chip_smoke.build_earlier([str(old)])
+    x, src, sw, eid, pos, w, _ = _moe_inputs(4, 1, 2048, 64, 8, 1.25,
+                                             torch.float32, cuda)
+    want = mk.moe_dispatch_cuda(x, src, sw)
+    current = _build.load("moe")
+    with chip_smoke.earlier_kernels({"moe": mk}, libs):
+        assert _build.load("moe") is libs["moe"] is not current
+        assert addr(mk._kernel_fns()[0]) == addr(libs["moe"].moe_dispatch)
+        got = mk.moe_dispatch_cuda(x, src, sw)
+    assert _build.load("moe") is current
+    assert addr(mk._kernel_fns()[0]) == addr(current.moe_dispatch)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
