@@ -9,6 +9,9 @@ gather clamps them.
 
 * :func:`embedding_bag_ref` — plain PyTorch: the CPU path and the
   reference the kernel is held against;
+* :func:`embedding_bag_ordered` — plain PyTorch summing in the kernel's
+  order (bag order, from 0, one rounded add a row), which the kernel is
+  bit-equal to; for tests and ``chip_smoke.py``;
 * :func:`embedding_bag_cuda` — the hand-written Hopper kernel
   ``csrc/embedding_bag.cu``, CUDA tensors only.
 
@@ -38,6 +41,19 @@ def embedding_bag_ref(ids, table):
     V = table.shape[0]
     rows = table[ids.long().clamp(0, V - 1)]
     return rows.to(torch.float32).sum(dim=1).to(table.dtype)
+
+
+def embedding_bag_ordered(ids, table):
+    """:func:`embedding_bag_ref` with the kernel's rounding: the sum runs in
+    bag order into a float32 accumulator that starts at 0, one rounded add
+    a row, and is cast to the table's dtype once (``.sum(dim=1)`` promises
+    no order).  The CUDA kernel's result is bit-equal to it."""
+    V = table.shape[0]
+    rows = table[ids.long().clamp(0, V - 1)].to(torch.float32)
+    acc = torch.zeros_like(rows[:, 0])
+    for b in range(rows.shape[1]):
+        acc = acc + rows[:, b]
+    return acc.to(table.dtype)
 
 
 def _kernel_fns():

@@ -7,7 +7,13 @@ tensors are held against the reference's Pallas kernel in interpret mode
 and its ``ref.embedding_bag_ref`` at the reference test's tolerances:
 float32 atol 1e-5, bfloat16 atol 5e-2 (both sum in float32, in another
 order, and bfloat16 rounds the output).  A bag of one is exact
-(``0 + row``) and held bit for bit."""
+(``0 + row``) and held bit for bit.  ``embedding_bag_ordered``, which sums
+in the CUDA kernel's order (bag order, from 0, one rounded add a row), is
+the Pallas kernel's own arithmetic (its grid walks the bag in order into
+an f32 scratch from 0), so it is held bit for bit against the
+interpret-mode kernel, and against ``ref.embedding_bag_ref`` at the
+tolerances above (scaled for bags far longer than the reference test's
+16, where a float32 sum in another order drifts by more ulps)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -28,7 +34,14 @@ SWEEP = [
     (4, 16, 1000, 256),
     (96, 1, 64, 16),
     (7, 3, 50, 5),
+    (3, 70, 500, 16),
+    (5, 6, 40, 130),
 ]
+# bags past the kernel's stages, (N, bag, V, dim, float32 atol against
+# the oracle, which sums in another order): 300 rows of |sum| up to ~50
+# drift by a few ulps (3.8e-6 each)
+LONG = [(3, 70, 500, 16, 1e-5), (2, 300, 400, 8, 5e-5),
+        (4, 130, 1000, 128, 2e-5)]
 DTYPES = [(jnp.float32, torch.float32, 1e-5),
           (jnp.bfloat16, torch.bfloat16, 5e-2)]
 
@@ -60,6 +73,25 @@ def test_plain_matches_reference_kernel_and_oracle(N, bag, V, dim, jdt, tdt,
         assert got.dtype == tdt and got.shape == (N, dim)
         np.testing.assert_allclose(_f32(got), want_kernel, atol=tol, rtol=0)
         np.testing.assert_allclose(_f32(got), want_ref, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("jdt,tdt,tol", DTYPES)
+@pytest.mark.parametrize("N,bag,V,dim,tol32",
+                         [(*case, 1e-5) for case in SWEEP] + LONG)
+def test_ordered_is_the_reference_kernels_arithmetic(N, bag, V, dim, tol32,
+                                                     jdt, tdt, tol):
+    ids, table = _inputs(N, bag, V, dim, seed=N + bag)
+    (ji, jt), (ti, tt) = _both(ids, table, jdt, tdt)
+    got = tbk.embedding_bag_ordered(ti, tt)
+    assert got.dtype == tdt and got.shape == (N, dim)
+    kernel = jbag(ji, jt, interpret=True)
+    assert np.array_equal(_f32(got).view(np.int32), _f32(kernel).view(
+        np.int32))
+    np.testing.assert_allclose(
+        _f32(got), _f32(jref.embedding_bag_ref(ji, jt)),
+        atol=tol32 if tdt == torch.float32 else tol, rtol=0)
+    if bag == 1:
+        assert torch.equal(got, tbk.embedding_bag_ref(ti, tt))
 
 
 def test_duplicate_ids():

@@ -17,8 +17,10 @@ keys or rows in another order) and bfloat16 atol 5e-2 rtol 1.6e-2 (one
 bf16 rounding of gradients of magnitude up to ~10 on each side, and D
 formed from the bf16 output); embedding bag float32 atol 1e-5 and
 bfloat16 atol 5e-2 (the reference's kernel-test tolerances: both sum in
-f32, in another order), bag 1 bit-equal to a gather (``0 + row``); the
-CTR path on the card bit-equal to the same path with the plain gather.
+f32, in another order), bag 1 bit-equal to a gather (``0 + row``), and
+every path of the kernel bit-equal to ``embedding_bag_ordered`` (the sum
+in the kernel's order); the CTR path on the card bit-equal to the same
+path with the plain gather.
 """
 
 import numpy as np
@@ -747,6 +749,109 @@ def test_embedding_bag_kernel_clamps_and_takes_int64(cuda, dtype):
     torch.testing.assert_close(bk.embedding_bag_cuda(dup, table.float()),
                                8 * table[0].float().expand(4, -1),
                                atol=0, rtol=1e-6)
+
+
+#: (label, N, bag, V, dim, dtype, misaligned table): each path of the
+#: kernel.  Staged (the launch's blocks all fit on the card at once): rows
+#: of a multiple of 16 bytes, one stage (up to 64 rows) or a ring of two,
+#: a warp a bag when the bags are few, several bags a warp otherwise, rows
+#: wider than 512 bytes in column chunks; streamed (more bags than that);
+#: the gather at bag 1; the fallbacks for a table view offset by one
+#: element and for rows that are not a multiple of 16 bytes
+BAG_PATH_CASES = [
+    ("staged", 256, 26, 1000, 128, torch.float32, False),
+    ("staged", 256, 26, 1000, 128, torch.bfloat16, False),
+    ("staged, several bags a warp", 4096, 26, 20_000, 16, torch.float32,
+     False),
+    ("staged, several bags a warp", 4096, 26, 20_000, 16, torch.bfloat16,
+     False),
+    ("staged, a warp a bag", 8, 26, 500, 16, torch.float32, False),
+    ("staged, column chunks", 9, 5, 300, 1000, torch.float32, False),
+    ("staged, column chunks", 9, 5, 300, 1000, torch.bfloat16, False),
+    ("ring, bag 70", 33, 70, 5000, 128, torch.float32, False),
+    ("ring, bag 70", 33, 70, 5000, 128, torch.bfloat16, False),
+    ("ring, bag 300", 17, 300, 5000, 16, torch.float32, False),
+    ("ring, bag 300", 17, 300, 5000, 16, torch.bfloat16, False),
+    ("ring, 16-byte rows, 32 bags a warp", 9000, 20, 1000, 4,
+     torch.float32, False),
+    ("streamed", 20_000, 26, 50_000, 128, torch.float32, False),
+    ("streamed", 20_000, 26, 50_000, 128, torch.bfloat16, False),
+    ("streamed, bag 300", 8192, 300, 5000, 16, torch.float32, False),
+    ("streamed, bag 300", 8192, 300, 5000, 16, torch.bfloat16, False),
+    ("streamed, wide rows", 3000, 5, 300, 1000, torch.float32, False),
+    ("bag 1", 6656, 1, 4096, 16, torch.float32, False),
+    ("bag 1", 6656, 1, 4096, 16, torch.bfloat16, False),
+    ("bag 1, wide rows", 16, 1, 50, 1000, torch.float32, False),
+    ("bag 1, misaligned", 100, 1, 200, 16, torch.float32, True),
+    ("misaligned", 64, 26, 1000, 128, torch.float32, True),
+    ("misaligned", 64, 26, 1000, 128, torch.bfloat16, True),
+    ("misaligned, bag 300", 5, 300, 1000, 128, torch.float32, True),
+    ("odd dim 130", 33, 26, 500, 130, torch.float32, False),
+    ("odd dim 130", 33, 26, 500, 130, torch.bfloat16, False),
+    ("odd dim 5", 7, 3, 50, 5, torch.float32, False),
+    ("4-byte rows, bag 300", 40, 300, 100, 1, torch.float32, False),
+    ("bf16 rows of 24 bytes", 33, 5, 64, 12, torch.bfloat16, False),
+]
+
+
+@pytest.mark.parametrize("label,N,bag,V,dim,dtype,misaligned",
+                         BAG_PATH_CASES)
+def test_embedding_bag_kernel_bit_equal_on_every_path(cuda, label, N, bag, V,
+                                                      dim, dtype,
+                                                      misaligned):
+    """Each path bit-equal to ``embedding_bag_ordered`` and to its own
+    second launch, within the reference's tolerance of the plain version,
+    one launch a call."""
+    ids, table = _bag_inputs(N, bag, V, dim, dtype, cuda, seed=bag)
+    if misaligned:
+        base = torch.empty(table.numel() + 1, dtype=dtype, device=cuda)
+        table = base[1:].view(V, dim).copy_(table)
+        assert table.is_contiguous() and table.data_ptr() % 16
+    n = bk.embedding_bag_cuda.launches
+    got = bk.embedding_bag_cuda(ids, table)
+    assert bk.embedding_bag_cuda.launches == n + 1
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (N, dim)
+    assert torch.equal(got, bk.embedding_bag_ordered(ids, table)), label
+    if bag <= 26:
+        torch.testing.assert_close(got.float(), bk.embedding_bag_ref(
+            ids, table).float(), atol=BAG_TOL[dtype], rtol=0)
+    assert torch.equal(bk.embedding_bag_cuda(ids, table), got), label
+    assert bk.embedding_bag_cuda.launches == n + 2
+
+
+def test_chip_smoke_baseline_launches_the_earlier_embedding_bag(cuda,
+                                                                tmp_path):
+    """``chip_smoke.py --baseline OLD/embedding_bag.cu``: inside
+    ``earlier_kernels`` the wrapper launches the earlier build (here the
+    current source with a comment appended), and the current one after."""
+    import ctypes
+    import sys
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    old = tmp_path / "embedding_bag.cu"
+    old.write_text((_build.CSRC / "embedding_bag.cu").read_text()
+                   + "// earlier\n")
+    libs = chip_smoke.build_earlier([str(old)])
+    ids, table = _bag_inputs(256, 26, 1000, 128, torch.float32, cuda)
+    want = bk.embedding_bag_cuda(ids, table)
+    current = _build.load("embedding_bag")
+
+    def addr(fn):
+        return ctypes.cast(fn, ctypes.c_void_p).value
+
+    with chip_smoke.earlier_kernels({"embedding_bag": bk}, libs):
+        assert addr(bk._kernel_fns()[0]) == addr(
+            libs["embedding_bag"].embedding_bag)
+        got = bk.embedding_bag_cuda(ids, table)
+    assert addr(bk._kernel_fns()[0]) == addr(current.embedding_bag)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_embedding_bag_kernel_rejects_what_it_does_not_take(cuda):
