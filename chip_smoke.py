@@ -37,11 +37,12 @@ result lines:
              and out-of-range ids (float32 atol 1e-5, bfloat16 5e-2, both
              widened past bag 26; a bag of one bit-equal to a gather), bit for
              bit equal to ``embedding_bag_ordered`` and over two calls;
-4. cli     — ``python -m repro_torch.launch.serve`` (plain and
-             ``--continuous``) and ``python -m repro_torch.launch.train``
-             with their defaults (reduced llama3.2-1b, head dim 32) as
-             subprocesses on the card, then through their ``main`` in this
-             process, counting the flash launches;
+4. cli     — ``python -m repro_torch.launch.serve`` (plain,
+             ``--continuous`` and ``--continuous --replan``) and ``python -m
+             repro_torch.launch.train`` with their defaults (reduced
+             llama3.2-1b, head dim 32) as subprocesses on the card, then
+             through their ``main`` in this process, counting the flash
+             launches;
 5. serve   — ``serve_continuous`` of llama3.2-1b at full width (16
              layers, d_model 2048, random weights from a seed, float32) on
              a mix of prompts of 64-512 tokens, counting kernel launches
@@ -91,7 +92,28 @@ result lines:
              same way, combine also on the strided slab; the embedding bag
              likewise at the CTR hot-cache lookup, two pooled shapes and
              long bags (those three also in bfloat16), each also after a
-             flush that leaves L2 clean.
+             flush that leaves L2 clean;
+13. sched  — the paper's Table-3 cases (MATCHNET, CTRDNN, 2EMB and NCE
+             on the CPU + V100 fleet, MATCHNET on 32 resource types) in one
+             ``RLScheduler().schedule_many`` call on the card (150 rounds x
+             32 plans, two fleet-size groups): each plan's cost on the card
+             against the NumPy ``plan_cost`` (rtol 1e-9) and no worse than
+             the Greedy, Heuristic, GPU and CPU baselines;
+             ``torch_cost.soft_cost`` of 4,096 random plans a model on the
+             card against the CPU and the NumPy oracle (rtol 1e-9, the
+             feasibility disagreements counted, none allowed that the
+             search's re-verification would miss); per group the steady
+             rounds/s, the first chunk's seconds, kernel launches and
+             device time a round, wall time, beside the same search on the
+             CPU and the unfused (NumPy-scored) loop;
+14. replan — the serve CLI's ``--replan`` controller (the fused search on
+             the card at start-up, a window every 0.5 s tuning admission)
+             around full-width llama3.2-1b ``serve_continuous`` on phase 5's
+             mix: requests completed, at least one window, an admission
+             report, a feasible incumbent, the kernel launches of phase 5.
+
+The scheduler has no TPU kernel in the reference (``jnp`` under ``jit``),
+so phases 13-14 add none: their search is plain tensor code on the card.
 
     python3 chip_smoke.py --baseline OLD/moe.cu [--baseline ...]
 
@@ -827,6 +849,8 @@ def phase_bag_kernels(torch, bk):
 CLI_RUNS = (("serve", "repro_torch.launch.serve", []),
             ("serve --continuous", "repro_torch.launch.serve",
              ["--continuous"]),
+            ("serve --continuous --replan", "repro_torch.launch.serve",
+             ["--continuous", "--replan"]),
             ("train", "repro_torch.launch.train", []))
 
 
@@ -854,8 +878,16 @@ def check_cli_summary(label, out):
     check(set(out["outcomes"]) == {"completed"} and out["pool_conserved"],
           f"{label} CLI: outcomes {out['outcome_counts']}, pool conserved "
           f"{out['pool_conserved']}")
-    return (f"{out['requests']} requests completed, {out['prefills']} "
+    what = (f"{out['requests']} requests completed, {out['prefills']} "
             f"prefills, {out['decode_steps']} decode steps")
+    if "--replan" in label:
+        rep = out.get("replan", {})
+        check("errors" not in rep and "admission" in rep
+              and math.isfinite(rep["incumbent"]["cost"]),
+              f"{label} CLI: replan report {rep}")
+        what += (f"; replan incumbent cost {rep['incumbent']['cost']:.6g}, "
+                 f"{rep['windows']} windows")
+    return what
 
 
 def phase_cli(torch, counters):
@@ -898,11 +930,12 @@ def phase_cli(torch, counters):
         launches = {name: fn.launches for name, fn in counters.items()}
         out = cli_json(buf.getvalue())
         check_cli_summary(label, out)
+        continuous = {"flash_fwd": layers * out.get("prefills", 0),
+                      "paged_decode": layers * out.get("decode_steps", 0)}
         want = {  # serve prefills its batch once and decodes densely
             "serve": {"flash_fwd": layers},
-            "serve --continuous": {
-                "flash_fwd": layers * out.get("prefills", 0),
-                "paged_decode": layers * out.get("decode_steps", 0)},
+            "serve --continuous": continuous,
+            "serve --continuous --replan": continuous,
             "train": {"flash_fwd": 2 * layers * 50,
                       "flash_bwd_dkdv": layers * 50,
                       "flash_bwd_dq": layers * 50}}[label]
@@ -2071,6 +2104,266 @@ def phase_bag_timing(torch, bk, earlier=None):
     return res
 
 
+# --------------------------------------------------------------------------
+# phase 13: the scheduler — the paper's Table-3 cases, fused RL on the card
+# --------------------------------------------------------------------------
+
+#: the paper's Table 3: four models on the CPU + V100 fleet, and MATCHNET
+#: on 32 resource types (two fleet-size groups in one schedule_many call)
+TABLE3 = (("MATCHNET", 2), ("CTRDNN", 2), ("2EMB", 2), ("NCE", 2),
+          ("MATCHNET", 32))
+SCHED_PLANS, SCHED_SEED = 4096, 0
+SCHED_BASELINES = ("Greedy", "Heuristic", "GPU", "CPU")
+
+
+def table3_specs():
+    from repro_torch.core import (TrainingJob, default_fleet, make_fleet,
+                                  paper_model_profiles)
+
+    job = TrainingJob()
+    specs = []
+    for model, types in TABLE3:
+        fleet = default_fleet() if types == 2 else make_fleet(types)
+        specs.append((paper_model_profiles(model, fleet), fleet, job))
+    return [f"{m}/{t}" for m, t in TABLE3], specs
+
+
+def search_launches(torch, specs, chunk: int = 5):
+    """Kernel launches and device ms a fused round makes for ``specs``
+    (one fleet-size group): the difference of two searches of one and two
+    chunks, each under ``torch.profiler`` tracing the card only (host ops
+    unrecorded, so the tracing costs little), so set-up and the final
+    decode cancel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.schedulers import RLScheduler
+
+    seen = []
+    for rounds in (chunk, 2 * chunk):
+        sched = RLScheduler(rounds=rounds, chunk_rounds=chunk,
+                            early_stop_rounds=10 ** 9, device="cuda")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            sched.schedule_many(specs)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.key.startswith(("Memcpy", "Memset"))]
+        check(kernels, "sched search: the profiler saw no kernel")
+        seen.append((sum(e.count for e in kernels),
+                     sum(e.self_device_time_total for e in kernels) / 1e3))
+    return ((seen[1][0] - seen[0][0]) / chunk,
+            (seen[1][1] - seen[0][1]) / chunk)
+
+
+def check_no_host_sync(torch, specs):
+    """One fused round's device work — sampling, ``soft_cost``, the
+    REINFORCE gradient, the Adam step — with CUDA's sync debug mode set to
+    error: any operation that waits for the card raises here."""
+    import numpy as np
+
+    from repro_torch.core import torch_cost
+    from repro_torch.core.schedulers import policy as pol
+    from repro_torch.core.schedulers.rl import _adam_update
+
+    profiles, fleet, job = specs[0]
+    T, L = len(fleet), len(profiles)
+    ct = torch_cost.cost_tensors(profiles, fleet, job, device="cuda")
+    feats = torch.as_tensor(pol.layer_features(profiles), device="cuda")
+    policy = pol.init_policy("lstm", feats.shape[1] + T, 64, T,
+                             device="cuda")
+    g = pol.gumbel_noise(torch.Generator().manual_seed(0),
+                         (32, L, T)).to("cuda")
+    opt = ([torch.zeros_like(p) for p in policy.params()],
+           [torch.zeros_like(p) for p in policy.params()], 0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        actions, logps = pol.sample(policy, feats, g, temperature=2.0)
+        sc = torch_cost.soft_cost(ct, actions)
+        adv = (-torch.log10(sc.soft + 1e-12)).to(torch.float32)
+        grads = torch.autograd.grad(logps, policy.params(),
+                                    grad_outputs=adv / 32)
+        _adam_update(policy.params(), grads, opt, 0.03)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(bool(np.isfinite(sc.soft.cpu().numpy()).all()),
+          "sync check: non-finite soft costs")
+    say("sched", "one fused round's device work ran with the sync debug "
+        "mode at 'error': no host sync")
+
+
+def phase_sched(torch):
+    """The Table-3 cases in one ``RLScheduler().schedule_many`` call on the
+    card (150 rounds x 32 plans by default): each plan's device-scored cost
+    against the NumPy oracle and no worse than the Greedy, Heuristic, GPU
+    and CPU baselines; ``torch_cost.soft_cost`` on the card against the
+    CPU and the oracle for 4,096 random plans a model; the search's rate
+    beside the same search on the CPU and the unfused loop's."""
+    import numpy as np
+
+    from repro_torch.core import batched_soft_plan_cost, plan_cost
+    from repro_torch.core.schedulers import ALL_SCHEDULERS, RLScheduler
+    from repro_torch.core.torch_cost import torch_soft_plan_cost
+
+    labels, specs = table3_specs()
+    check_no_host_sync(torch, specs)
+    # 1. the search on the card: one call, two fleet-size groups
+    t0 = time.perf_counter()
+    res = RLScheduler(device="cuda").schedule_many(specs)
+    wall = time.perf_counter() - t0
+    rng = np.random.default_rng(SCHED_SEED)
+    flips = 0
+    for label, r, (profiles, fleet, job) in zip(labels, res, specs):
+        check(r.extra["fused"] and r.extra["device"].startswith("cuda"),
+              f"{label}: the search did not run fused on the card")
+        check(math.isfinite(r.cost), f"{label}: no feasible plan")
+        oracle, _ = plan_cost(r.plan, profiles, fleet, job)
+        soft, card_cost, feas = torch_soft_plan_cost(
+            np.asarray([r.plan.assignment]), profiles, fleet, job,
+            device="cuda")
+        check(bool(feas[0]) and math.isclose(card_cost[0], oracle,
+                                             rel_tol=1e-9),
+              f"{label}: card cost {card_cost[0]!r} vs NumPy plan_cost "
+              f"{oracle!r} (rtol 1e-9)")
+        base = {}
+        for name in SCHED_BASELINES:
+            b = ALL_SCHEDULERS[name]().schedule(profiles, fleet, job)
+            base[name] = b.cost
+            check(r.cost <= b.cost * (1 + 1e-12),
+                  f"{label}: RL {r.cost!r} worse than {name} {b.cost!r}")
+        say("sched", f"{label}: RL-LSTM cost {r.cost:.6g} (card "
+            f"{card_cost[0]:.6g}, rel err "
+            f"{abs(card_cost[0] - oracle) / oracle:.1e}); " + ", ".join(
+                f"{n} {c:.6g}" for n, c in base.items())
+            + f"; {r.extra['rounds']} rounds, {r.evaluations} plans scored")
+
+        # 2. soft_cost on the card vs the CPU and the NumPy oracle
+        A = rng.integers(0, len(fleet), (SCHED_PLANS, len(profiles)))
+        card = torch_soft_plan_cost(A, profiles, fleet, job, device="cuda")
+        cpu = torch_soft_plan_cost(A, profiles, fleet, job, device="cpu")
+        bc, nsoft = batched_soft_plan_cost(A, profiles, fleet, job)
+        # the search re-verifies a card-feasible winner against the oracle
+        # (_select_plan); a plan the card calls infeasible and the oracle
+        # feasible would be lost without a trace
+        lost = int(np.sum(~card[2] & bc.feasible))
+        both = (card[2] == cpu[2]) & (card[2] == bc.feasible)
+        flips += int(np.sum(~both))
+        err = max(float(np.max(np.abs(card[0][both] - ref[both])
+                               / np.abs(ref[both])))
+                  for ref in (cpu[0], nsoft))
+        check(lost == 0, f"{label}: {lost} plans infeasible on the card "
+              "but feasible by the oracle")
+        check(err <= 1e-9, f"{label}: soft cost card vs CPU/oracle rel err "
+              f"{err:.2e} > 1e-9")
+        say("sched", f"{label}: soft_cost of {SCHED_PLANS} random plans, "
+            f"card vs CPU and NumPy: max rel err {err:.2e} (rtol 1e-9), "
+            f"feasibility disagreements {int(np.sum(~both))} (card "
+            f"infeasible, oracle feasible: {lost}); "
+            f"{int(bc.feasible.sum())} feasible")
+
+    # 3. rates: per group on the card, the same search on the CPU, the
+    # unfused loop (NumPy-scored) on the CPU
+    cpu_res = RLScheduler(device="cpu").schedule_many(specs)
+    unfused = RLScheduler(fused=False, device="cpu").schedule_many(specs)
+    groups = {}
+    for i, (_, fleet, _) in enumerate(specs):
+        groups.setdefault(len(fleet), []).append(i)
+    for types, idx in groups.items():
+        names = ", ".join(labels[i] for i in idx)
+        launches, dev_ms = search_launches(torch, [specs[i] for i in idx])
+        r, c = res[idx[0]], cpu_res[idx[0]]
+        host_ms = 1e3 / r.extra["rounds_per_s"]
+        u_rate = [unfused[i].extra["rounds_per_s"] for i in idx]
+        say("sched", f"group of {len(idx)} on {types} types ({names}): card "
+            f"{r.extra['rounds_per_s']:.2f} rounds/s steady, first chunk "
+            f"{r.extra['chunk_s'][0]:.3f} s ({r.extra['compile_s']:.3f} s "
+            f"beyond a steady one), {launches:.0f} kernel launches and "
+            f"{dev_ms:.3f} ms of device time a round (device idle share "
+            f"{1 - dev_ms / host_ms:.3f}), group wall {r.wall_time_s:.2f} s "
+            f"for {max(res[i].extra['rounds'] for i in idx)} rounds; CPU "
+            f"{c.extra['rounds_per_s']:.2f} rounds/s, wall "
+            f"{c.wall_time_s:.2f} s; unfused on the CPU "
+            + ", ".join(f"{u:.2f}" for u in u_rate) + " rounds/s")
+        for i in idx:
+            same = res[i].plan.assignment == cpu_res[i].plan.assignment
+            say("sched", f"{labels[i]}: card plan {'=' if same else '!='} "
+                f"CPU plan; costs card {res[i].cost:.6g}, CPU "
+                f"{cpu_res[i].cost:.6g}, unfused {unfused[i].cost:.6g}")
+    say("sched", f"schedule_many on the card: {wall:.2f} s for "
+        f"{len(specs)} models; soft_cost feasibility disagreements in all: "
+        f"{flips}")
+
+
+# --------------------------------------------------------------------------
+# phase 14: serve --continuous --replan at full width
+# --------------------------------------------------------------------------
+
+def phase_replan(torch, counters):
+    """The serve CLI's ``--replan`` wiring (``launch.serve.replan_
+    controller``: the fused search on the card at start-up, a window every
+    0.5 s that tunes admission) around ``serve_continuous`` of llama3.2-1b
+    at full width on phase 5's mix, with every launch count set to 0 just
+    before the serving run and read just after.  One tick just before
+    serving opens the first window, so the windows cover the run (the CLI
+    opens it one period after start-up)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.admission import AdmissionPolicy
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import decoder as dec
+
+    cfg = get_config("llama3.2-1b", reduced=False)
+    params = dec.init_model(cfg, seed=0, device="cuda")
+    # the same mix once first, as in phase 5
+    serve_cli.serve_continuous("llama3.2-1b", reduced=False, device="cuda",
+                               requests=REQUESTS, slots=4, params=params)
+    args = serve_cli.build_parser().parse_args(
+        ["--no-reduced", "--continuous", "--replan", "--replan-window-s",
+         "0.5", "--device", "cuda"])
+    policy = AdmissionPolicy(slots=4)
+    t0 = time.perf_counter()
+    controller = serve_cli.replan_controller(args, policy)
+    search_s = time.perf_counter() - t0
+    controller.start()
+    controller.tick()
+    for fn in counters.values():
+        fn.launches = 0
+    try:
+        out = serve_cli.serve_continuous(
+            "llama3.2-1b", reduced=False, device="cuda", requests=REQUESTS,
+            slots=4, params=params, admission=policy)
+    finally:
+        controller.stop()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    rep = controller.report()
+    check(out["outcomes"] == ["completed"] * len(REQUESTS),
+          f"replan serve outcomes {out['outcomes']}")
+    check(out["tokens_in_vocab"] and out["pool_conserved"],
+          "replan serve: tokens outside the vocabulary or pool not conserved")
+    check("errors" not in rep, f"controller ticks raised: {rep.get('errors')}")
+    check(rep["windows"] >= 1, f"controller completed {rep['windows']} "
+          f"windows in a {out['wall_s']:.2f} s run")
+    check("admission" in rep, "no admission report")
+    check(math.isfinite(rep["incumbent"]["cost"]),
+          f"infeasible incumbent {rep['incumbent']}")
+    layers = cfg.num_layers
+    check(launches["paged_decode"] == layers * out["decode_steps"],
+          f"replan serve: paged_decode launches {launches['paged_decode']} "
+          f"!= {layers} x {out['decode_steps']} steps")
+    check_prefill_flash(launches, layers, out["prefills"],
+                        "llama3.2-1b with --replan")
+    adm = rep["admission"]
+    say("replan", f"start-up search on the card {search_s:.2f} s; incumbent "
+        f"{rep['incumbent']['assignment']} cost "
+        f"{rep['incumbent']['cost']:.6g}; {len(REQUESTS)} requests "
+        f"completed in {out['wall_s']:.2f} s, {rep['windows']} windows, "
+        f"{rep['calibrations']} calibrations, {rep['considered']} re-plans "
+        f"considered; admission: {len(adm['decisions'])} decisions, "
+        f"queue bound {adm['queue_bound']}, max concurrency "
+        f"{adm['max_concurrency']}; launches {launches}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", metavar="NAME.cu", action="append",
@@ -2184,8 +2477,14 @@ def main(argv=None) -> int:
     moe_timing = phase_moe_timing(torch, mk, earlier("moe"))
     flash_timing = phase_flash_timing(torch, fk)
     bag_timing = phase_bag_timing(torch, bk, earlier("embedding_bag"))
+    torch.cuda.empty_cache()
+
+    # 13.-14. the scheduler, and serving with the re-planning controller
+    phase_sched(torch)
+    replan_launches = phase_replan(torch, counters)
 
     paths = (("llama3.2-1b serve", llama_launches),
+             ("llama3.2-1b serve --replan", replan_launches),
              ("olmoe-1b-7b serve", moe_launches),
              ("llama3.2-1b train", train_launches),
              ("olmoe-1b-7b 2-layer train check",

@@ -17,6 +17,10 @@ Two entry points:
 
 On a CUDA device every attention layer's decode step launches the
 hand-written paged-decode kernel (``kernels/csrc/paged_decode.cu``).
+``--continuous --replan`` runs the re-planning controller
+(``core/replan.py``) beside the serving loop: the RL scheduler's fused
+search at start-up, then a window of serve telemetry every
+``--replan-window-s`` seconds that tunes the admission policy.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced \\
       --continuous --device cuda
@@ -724,8 +728,23 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--obs-dir", default=None,
                     help="enable observability and write trace.json + "
                          "metrics.jsonl to this directory")
+    ap.add_argument("--replan", action="store_true",
+                    help="run the reactive re-planning controller on a "
+                         "background thread while --continuous serves: "
+                         "an RL search at start-up (on --device), then "
+                         "windows of the serve SLO signals (TTFT/TPOT p99, "
+                         "queue growth) that tune admission and re-plan on "
+                         "sustained violation (enables the metric "
+                         "registry)")
+    ap.add_argument("--replan-window-s", type=float, default=1.0,
+                    help="telemetry window span in seconds")
+    ap.add_argument("--ttft-slo", type=float, default=0.0,
+                    help="TTFT p99 SLO in seconds (0 = no SLO trigger)")
+    ap.add_argument("--tpot-slo", type=float, default=0.0,
+                    help="TPOT p99 SLO in seconds (0 = no SLO trigger)")
     ap.add_argument("--queue-bound", type=int, default=None,
-                    help="admission queue depth bound (reject past it)")
+                    help="admission queue depth bound (reject past it; "
+                         "the --replan actuator retunes it)")
     ap.add_argument("--max-concurrency", type=int, default=None,
                     help="cap live decode slots below --batch")
     ap.add_argument("--deadline-ttft", type=float, default=None,
@@ -743,23 +762,60 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def replan_controller(args, policy: AdmissionPolicy):
+    """The ``--replan`` controller, wired as the reference's serve CLI
+    wires it: a fused RL search (on ``args.device``) over the paper's
+    CTR-DNN on its CPU + V100 fleet at start-up, then a window every
+    ``--replan-window-s`` seconds that tunes ``policy``'s admission
+    knobs and re-plans on sustained SLO drift."""
+    from repro_torch.core.cost_model import TrainingJob
+    from repro_torch.core.profiles import ctrdnn_layers
+    from repro_torch.core.replan import (AdmissionActuator, ReplanConfig,
+                                         ReplanController)
+    from repro_torch.core.resources import default_fleet
+    from repro_torch.core.schedulers.rl import RLScheduler
+    from repro_torch.obs.bridge import snapshot_resources
+
+    obs.REGISTRY.enabled = True   # the detector reads serve histograms
+    rfleet = default_fleet()
+    return ReplanController(
+        ctrdnn_layers(), rfleet, TrainingJob(),
+        RLScheduler(rounds=40, plans_per_round=16, early_stop_rounds=15,
+                    chunk_rounds=10, device=args.device),
+        snapshot_fn=lambda: snapshot_resources(rfleet[0]),
+        config=ReplanConfig(window_s=args.replan_window_s,
+                            ttft_slo_s=args.ttft_slo,
+                            tpot_slo_s=args.tpot_slo),
+        admission=AdmissionActuator(policy, ttft_slo_s=args.ttft_slo))
+
+
 def main(argv: list[str] | None = None) -> None:
     args = build_parser().parse_args(argv)
     if args.obs_dir:
         obs.configure(run_dir=args.obs_dir)
+    controller = None
     if args.continuous:
         policy = AdmissionPolicy(slots=args.batch,
                                  queue_bound=args.queue_bound,
                                  max_concurrency=args.max_concurrency)
+        if args.replan:
+            controller = replan_controller(args, policy)
+            controller.start()
         deadlines = None
         if args.deadline_ttft is not None or args.deadline_total is not None:
             deadlines = (args.deadline_ttft, args.deadline_total)
-        out = serve_continuous(args.arch, reduced=args.reduced,
-                               slots=args.batch, admission=policy,
-                               deadlines=deadlines,
-                               preemption=args.preemption,
-                               watchdog_s=args.watchdog,
-                               device=args.device)
+        try:
+            out = serve_continuous(args.arch, reduced=args.reduced,
+                                   slots=args.batch, admission=policy,
+                                   deadlines=deadlines,
+                                   preemption=args.preemption,
+                                   watchdog_s=args.watchdog,
+                                   device=args.device)
+        finally:
+            if controller is not None:
+                controller.stop()
+        if controller is not None:
+            out["replan"] = controller.report()
     else:
         out = serve(args.arch, reduced=args.reduced, batch=args.batch,
                     prompt_len=args.prompt_len, gen=args.gen,

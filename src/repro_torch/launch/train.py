@@ -21,7 +21,8 @@ double-buffered pull/push overlap and tier-aware row placement:
 The elastic fleet's flags (``--ps-optimizer`` other than ``none``,
 ``--ps-event``, ``--ckpt-dir``/``--ckpt-every``, ``--ps-fault``) and
 ``--replan`` raise ``NotImplementedError``: they wait for ROADMAP.md queue
-1 items 11 and 9.
+1 item 11 (the re-planning controller is ported, ``core/replan.py``, but
+the reference runs it over the elastic fleet's telemetry and health).
 """
 
 from __future__ import annotations
@@ -113,8 +114,9 @@ def train(arch, *, reduced: bool = True, steps: int = 50, batch: int = 8,
 ELASTIC_TODO = ("the elastic PS fleet (PS-hosted optimizers, scripted fleet "
                 "events, fault injection, fleet checkpoints) is not ported "
                 "yet: ROADMAP.md queue 1 item 11")
-REPLAN_TODO = ("--replan needs the scheduler's fused search, which is not "
-               "ported yet: ROADMAP.md queue 1 item 9")
+REPLAN_TODO = ("--replan re-plans over the elastic PS fleet's telemetry and "
+               "health, and the elastic fleet is not ported yet: ROADMAP.md "
+               "queue 1 item 11")
 
 
 def train_sparse_ps(*, steps: int, batch: int | None = None,
@@ -133,9 +135,9 @@ def train_sparse_ps(*, steps: int, batch: int | None = None,
     (``inproc`` | ``multiproc``).
 
     ``optimizer`` other than ``"none"``, ``events``, ``ckpt_dir`` /
-    ``ckpt_every`` and ``fault_schedule`` need the elastic fleet, and
-    ``replan`` the scheduler: each raises ``NotImplementedError`` naming
-    its ROADMAP item rather than running something else."""
+    ``ckpt_every``, ``fault_schedule`` and ``replan`` need the elastic
+    fleet: each raises ``NotImplementedError`` naming its ROADMAP item
+    rather than running something else."""
     import dataclasses
 
     from repro_torch.ps.workload import CTRConfig, train_ctr_ps
@@ -201,7 +203,17 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ps-fault", default=None, metavar="RULE[;RULE...]",
                     help="deterministic fault schedule (not ported: raises)")
     ap.add_argument("--replan", action="store_true",
-                    help="reactive re-planning (not ported: raises)")
+                    help="reactive re-planning over the elastic fleet "
+                         "(not ported: raises)")
+    ap.add_argument("--replan-window-steps", type=int, default=25,
+                    help="steps per telemetry window")
+    ap.add_argument("--replan-bw-tol", type=float, default=0.5,
+                    help="relative bandwidth deviation that counts as drift")
+    ap.add_argument("--replan-margin", type=float, default=0.05,
+                    help="fractional cost improvement required to switch "
+                         "plans")
+    ap.add_argument("--replan-cooldown", type=int, default=3,
+                    help="windows to sit out after a replan consideration")
     ap.add_argument("--obs-dir", default=None,
                     help="enable observability and write trace.json + "
                          "metrics.jsonl to this directory")

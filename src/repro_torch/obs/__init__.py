@@ -8,8 +8,8 @@ the serve path uses; stdlib only).
 * :func:`flush` — write ``trace.json`` + append a ``metrics.jsonl``
   snapshot to the configured run directory.
 
-The live-metrics → cost-model bridge waits for the scheduler slice
-(ROADMAP.md queue 1 item 9).
+``repro_torch.obs.bridge`` (imported on its own) turns the live metrics
+into the cost model's shapes for the re-planner.
 """
 
 from __future__ import annotations

@@ -22,7 +22,11 @@ MODULES = ["repro_torch", "repro_torch.launch.serve",
            "repro_torch.checkpoint", "repro_torch.tree",
            "repro_torch.kernels.embedding_bag", "repro_torch.parallel.ps",
            "repro_torch.ps.sharding", "repro_torch.ps.workload",
-           "repro_torch.ps.client", "repro_torch.ps.server"]
+           "repro_torch.ps.client", "repro_torch.ps.server",
+           "repro_torch.core", "repro_torch.core.torch_cost",
+           "repro_torch.core.schedulers", "repro_torch.core.schedulers.rl",
+           "repro_torch.core.schedulers.policy", "repro_torch.core.replan",
+           "repro_torch.obs.bridge"]
 
 
 @pytest.fixture(scope="module")

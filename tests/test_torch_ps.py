@@ -595,7 +595,7 @@ def test_sparse_ps_defaults_to_cuda():
     ({"events": ["10:join"]}, "item 11"),
     ({"ckpt_dir": "ckpt", "ckpt_every": 5}, "item 11"),
     ({"fault_schedule": "crash,shard=0,after=4"}, "item 11"),
-    ({"replan": True}, "item 9"),
+    ({"replan": True}, "item 11"),
 ])
 def test_elastic_and_replan_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
