@@ -110,10 +110,26 @@ result lines:
              the card at start-up, a window every 0.5 s tuning admission)
              around full-width llama3.2-1b ``serve_continuous`` on phase 5's
              mix: requests completed, at least one window, an admission
-             report, a feasible incumbent, the kernel launches of phase 5.
+             report, a feasible incumbent, the kernel launches of phase 5;
+15. elastic — ``train_ctr_elastic`` at ``CTRConfig()`` on the card (3
+             in-process shard servers, PS-hosted optimizers, one backup a
+             bucket, the tower and the push's dedup on the card), with the
+             launch counts set to 0 just before and read just after (none:
+             the fleet has no hot cache): 200 sync adagrad steps calm, with
+             a join at 40 and a kill at 80 (one recovery), under
+             ``bench_chaos.py``'s masking schedule and under the loss of
+             both replicas of every bucket with checkpoints every 5 steps
+             (a restore and a replay), each bit-equal to the calm run's
+             losses; 200 async adam steps with the join and the kill; the
+             train CLI with its defaults over one shard process each and a
+             kill, and with ``--replan`` (one calibration, one drift
+             consideration for the kill); a shard process SIGKILLed with no
+             traffic, detected by the heartbeat within its deadline and
+             recovered bit-exactly.
 
-The scheduler has no TPU kernel in the reference (``jnp`` under ``jit``),
-so phases 13-14 add none: their search is plain tensor code on the card.
+The scheduler and the elastic fleet have no TPU kernel in the reference
+(``jnp`` under ``jit``; no hot cache on the elastic path), so phases 13-15
+add none: their device work is plain tensor code on the card.
 
     python3 chip_smoke.py --baseline OLD/moe.cu [--baseline ...]
 
@@ -2364,6 +2380,300 @@ def phase_replan(torch, counters):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 15: the elastic PS fleet, chaos and fleet checkpoints
+# --------------------------------------------------------------------------
+
+#: benchmarks/bench_chaos.py's schedules: every fault kind the transport's
+#: retries must mask, interleaved; and a correlated loss of both replicas
+#: of every bucket (global attempt ~170, about step 14 on 3 shards)
+MASK_SCHED = ("drop_reply,op=grad,after=10,times=2;"
+              "drop_reply,op=grad,after=120,times=2;"
+              "dup_reply,op=pull,after=5,times=2;"
+              "dup_reply,op=pull,after=150,times=2;"
+              "recv_error,after=30,times=2;"
+              "recv_error,after=200,times=2;"
+              "delay,delay_s=0.001,prob=0.3")
+KILL_BOTH = ("crash,op=grad,shard=0,after=170,times=1;"
+             "crash,op=grad,shard=1,after=170,times=1")
+#: checkpoints every 5 steps, as bench_chaos.py takes them: the drains'
+#: attempts place KILL_BOTH's two crashes in one push (step 13); every 10
+#: steps they land a step apart, and replica recovery between them
+#: survives the second
+ELASTIC_STEPS, ELASTIC_CKPT_EVERY = 200, 5
+ELASTIC_EVENTS = [(40, "join", None), (80, "kill", 0)]
+#: the re-planning reasons a shard kill raises
+KILL_REASONS = {"fleet_events", "ps_degraded"}
+
+
+def tally(xs) -> dict:
+    """How often each value occurs in ``xs``, in first-seen order."""
+    return {k: xs.count(k) for k in dict.fromkeys(xs)}
+
+
+def elastic_line(label, out):
+    n = out["steps"]
+    say("elastic", f"{label}: {n} steps, {out['steps_per_sec']:.2f} steps/s;"
+        f" pull {out['pull_seconds'] / n * 1e3:.3f} ms, push "
+        f"{out['push_seconds'] / n * 1e3:.3f} ms a step; loss "
+        f"{out['first_loss']:.4f} -> {out['last_loss']:.4f}; events "
+        f"{tally([e['kind'] for e in out['events']])}, recovery "
+        f"{out['recovery_seconds']:.4f} s, join {out['join_seconds']:.4f} s;"
+        f" live shards {out['live_shards']}; tower on "
+        f"{out['devices']['tower']}")
+
+
+def phase_elastic(torch, counters):
+    """``train_ctr_elastic`` at ``CTRConfig()`` on the card (the tower and
+    the push's dedup there, 3 in-process shard servers with PS-hosted
+    optimizers, one backup per bucket), with every launch count set to 0
+    just before the runs and read just after (the fleet has no hot cache:
+    no kernel of ours runs).  Sync adagrad calm, with a join and a kill,
+    under the masking schedule and under the loss of both replicas with
+    checkpoints every 5 steps: each bit-equal to the calm run's losses;
+    async adam with the join and the kill."""
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.ps.workload import CTRConfig, train_ctr_elastic
+
+    cfg = CTRConfig()
+    say("elastic", f"CTRConfig(): vocab {cfg.vocab}, emb_dim {cfg.emb_dim}, "
+        f"{cfg.slots} slots, tower {cfg.tower}, batch {cfg.batch}; 3 "
+        "in-process shard servers, 12 buckets, one backup each")
+    kw = dict(steps=ELASTIC_STEPS, num_shards=3, optimizer="adagrad",
+              mode="sync", device="cuda")
+    reg = obs.REGISTRY
+    ckpt_keys = ("saves", "bytes", "ms")
+    for fn in counters.values():
+        fn.launches = 0
+    runs = {"calm": train_ctr_elastic(cfg, **kw)}
+    runs["join + kill"] = train_ctr_elastic(cfg, **kw, events=ELASTIC_EVENTS)
+    runs["masked faults"] = train_ctr_elastic(
+        cfg, **kw, fault_schedule=MASK_SCHED, fault_seed=0)
+    with tempfile.TemporaryDirectory() as d:
+        was = reg.enabled
+        reg.enabled = True       # the checkpoint writer's own counters
+        before = {k: reg.counter(f"ps.ckpt.{k}").value for k in ckpt_keys}
+        try:
+            runs["both replicas lost"] = train_ctr_elastic(
+                cfg, **kw, fault_schedule=KILL_BOTH, fault_seed=0,
+                ckpt_dir=d, ckpt_every=ELASTIC_CKPT_EVERY)
+        finally:
+            reg.enabled = was
+        ckpt = {k: reg.counter(f"ps.ckpt.{k}").value - before[k]
+                for k in ckpt_keys}
+    runs["async adam, join + kill"] = train_ctr_elastic(
+        cfg, **dict(kw, optimizer="adam", mode="async"),
+        events=ELASTIC_EVENTS)
+    launches = {name: fn.launches for name, fn in counters.items()}
+
+    for label, out in runs.items():
+        elastic_line(label, out)
+        check(out["steps"] == ELASTIC_STEPS
+              and all(math.isfinite(x) for x in out["losses"]),
+              f"{label}: {out['steps']} steps, non-finite losses")
+        check(out["devices"] == {"tower": ["cuda:0"]},
+              f"{label}: tower on {out['devices']}")
+    check(all(n == 0 for n in launches.values()),
+          f"the elastic runs launched kernels: {launches}")
+    calm = runs["calm"]["losses"]
+    for label in ("join + kill", "masked faults", "both replicas lost"):
+        check(runs[label]["losses"] == calm,
+              f"{label}: losses differ from the calm run's")
+    hit = runs["join + kill"]
+    recovers = [e for e in hit["events"] if e["kind"] == "recover"]
+    check(len(recovers) == 1 and recovers[0]["shards"] == [0],
+          f"join + kill: recover events {recovers}")
+    check(hit["live_shards"] == [1, 2, 3], f"join + kill: live shards "
+          f"{hit['live_shards']}")
+    masked = runs["masked faults"]
+    fired = [i["kind"] for i in masked["injections"]]
+    check("crash" not in fired and len(set(fired) - {"delay"}) == 3
+          and masked["transport_counters"]["retries"] >= 1,
+          f"masked faults: injections {fired}, counters "
+          f"{masked['transport_counters']}")
+    lost = runs["both replicas lost"]
+    restores = [e for e in lost["events"] if e["kind"] == "restore"]
+    crashes = sum(i["kind"] == "crash" for i in lost["injections"])
+    saved = [s for s, _ in lost["checkpoints"]]
+    check(lost["restores"] >= 1 and restores and crashes == 2,
+          f"both replicas lost: {lost['restores']} restores, {crashes} "
+          "crashes")
+    check(saved[-1] == ELASTIC_STEPS - 1 and all(
+        (s + 1) % ELASTIC_CKPT_EVERY == 0 for s in saved),
+          f"both replicas lost: checkpoints at steps {saved}")
+    check(ckpt["saves"] >= len(saved) and ckpt["bytes"] > 0,
+          f"checkpoint counters {ckpt}")
+    arun = runs["async adam, join + kill"]
+    arec = [e for e in arun["events"] if e["kind"] == "recover"]
+    # the puller and the pusher may both trip over the dead shard: the
+    # second recovery finds nothing to re-home but still logs an event
+    check(1 <= len(arec) <= 2 and all(e["shards"] == [0] for e in arec),
+          f"async: recover events {arec}")
+    say("elastic", f"calm vs join + kill, masked faults ({len(fired)} "
+        f"injections: {tally(fired)}; transport "
+        f"{masked['transport_counters']}; events "
+        f"{tally([e['kind'] for e in masked['events']])}) and both "
+        f"replicas lost: {ELASTIC_STEPS} losses bit-equal")
+    say("elastic", f"both replicas lost: {crashes} crashes, "
+        f"{lost['restores']} restore(s) of {restores[0]['seconds']:.4f} s "
+        f"from step {restores[0]['step']}; {ckpt['saves']:.0f} checkpoints "
+        f"written, "
+        f"{ckpt['bytes'] / ckpt['saves'] / 1e6:.2f} MB and "
+        f"{ckpt['ms'] / ckpt['saves']:.1f} ms each (writer thread); "
+        f"async recover events {len(arec)}; launches {launches}")
+    return {"runs": runs, "ckpt": ckpt, "launches": launches}
+
+
+def count_syncs(torch, fn) -> int:
+    """The host syncs ``torch.cuda.set_sync_debug_mode`` reports while
+    ``fn()`` runs (a prototype that may miss some: a lower bound)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def elastic_step_syncs(torch):
+    """The host syncs of one sync elastic step at ``CTRConfig()`` on the
+    card, split into the pull, the tower step with its loss read, and
+    the push (after one step unwatched)."""
+    from repro_torch.ps.workload import (
+        CTRConfig, click_stream, init_tower, make_fleet, make_step_fn,
+    )
+
+    cfg = CTRConfig()
+    fleet = make_fleet(cfg, 3, optimizer="adagrad", device="cuda")
+    try:
+        step_fn, state = make_step_fn(cfg), {}
+        state["tower"] = init_tower(cfg, device="cuda")
+        stream = click_stream(cfg)
+
+        def pull():
+            state["b"] = next(stream)
+            state["rows"] = fleet.pull(state["b"]["ids"])
+
+        def step():
+            labels = torch.from_numpy(state["b"]["label"]).to("cuda")
+            state["tower"], state["g"], loss = step_fn(
+                state["tower"], state["rows"], labels)
+            float(loss)
+
+        def push():
+            fleet.push(state["b"]["ids"], state["g"], lr=0.5)
+
+        for part in (pull, step, push):
+            part()
+        syncs = {part.__name__: count_syncs(torch, part)
+                 for part in (pull, step, push)}
+    finally:
+        fleet.close()
+    say("elastic", f"host syncs of one sync step (set_sync_debug_mode, a "
+        f"lower bound): {syncs}")
+    return syncs
+
+
+#: the heartbeat's period of the default multiproc transport, seconds
+HEARTBEAT_S = 1.0
+
+
+def phase_elastic_processes(torch):
+    """The train CLI over the elastic fleet as a user starts it, on the
+    card by default: one shard process each with a kill at step 20, and
+    ``--replan`` with the fused search on the card; then a shard process
+    SIGKILLed with no traffic in flight, which the heartbeat must report
+    within its deadline and the fleet recover from, bit-exactly."""
+    import os
+    import signal
+
+    from repro_torch.ps.workload import CTRConfig, click_stream, make_fleet
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    outs = {}
+    for label, args in (
+            ("multiproc", ["--ps-transport", "multiproc", "--ps-event",
+                           "20:kill:0"]),
+            # bandwidth drift parked out of reach, as bench_replan.py
+            # parks it: it follows host timing noise, and a bandwidth
+            # consideration's cooldown can hide the kill's window
+            ("replan", ["--replan", "--replan-window-steps", "5",
+                        "--replan-bw-tol", "5.0", "--ps-event",
+                        "20:kill:0"])):
+        argv = ["--sparse-ps", *args]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *argv],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        check(proc.returncode == 0, f"train {' '.join(argv)} exited "
+              f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+        out = outs[label] = cli_json(proc.stdout)
+        kinds = [e["kind"] for e in out["events"]]
+        check("recover" in kinds and out["devices"]["tower"] == ["cuda:0"],
+              f"train {' '.join(argv)}: events {kinds}, devices "
+              f"{out['devices']}")
+        say("elastic", f"python -m repro_torch.launch.train "
+            f"{' '.join(argv)}: exit 0 in {time.perf_counter() - t0:.1f} s; "
+            f"{out['mode']}, {out['steps']} steps, "
+            f"{out['steps_per_sec']:.2f} steps/s, events {kinds}, recovery "
+            f"{out['recovery_seconds']:.4f} s")
+    rep = outs["replan"]["replan"]
+    drift = [d for d in rep["decisions"] if d["kind"] == "drift"]
+    check("errors" not in rep and rep["calibrations"] == 1
+          and rep["considered"] == 1 and len(drift) == 1
+          and KILL_REASONS & set(drift[0]["reasons"]),
+          f"--replan report: {rep}")
+    say("elastic", f"--replan: {rep['windows']} windows, "
+        f"{rep['calibrations']} calibration, {rep['considered']} drift "
+        f"consideration (window {drift[0]['window']}, "
+        f"{drift[0]['reasons']}), {rep['applied']} applied; incumbent "
+        f"{rep['incumbent']['assignment']} cost "
+        f"{rep['incumbent']['cost']:.6g}")
+
+    cfg = CTRConfig()
+    fleet = make_fleet(cfg, 3, optimizer="adagrad", transport="multiproc",
+                       device="cuda")
+    try:
+        b = next(click_stream(cfg))
+        g = torch.randn((*b["ids"].shape, cfg.emb_dim),
+                        generator=torch.Generator().manual_seed(0))
+        fleet.pull(b["ids"])
+        fleet.push(b["ids"], g.to(fleet.device), lr=0.5)
+        before = fleet.to_dense()
+        t0 = time.perf_counter()
+        os.kill(fleet.transport._shards[1].proc.pid, signal.SIGKILL)
+        detected = None
+        while time.perf_counter() - t0 < 5 * HEARTBEAT_S:
+            kinds = [e["kind"] for e in fleet.events]
+            if detected is None and "detected" in kinds:
+                detected = time.perf_counter() - t0
+            if "recover" in kinds:
+                break
+            time.sleep(0.002)
+        recovered = time.perf_counter() - t0
+        check(detected is not None and detected <= 2 * HEARTBEAT_S
+              and "recover" in kinds,
+              f"heartbeat: detected after {detected} s, events {kinds}")
+        rows = fleet.pull(torch.arange(cfg.vocab))
+        check(torch.equal(rows.cpu(), before),
+              "rows after the heartbeat's recovery differ from the last "
+              "acked state")
+    finally:
+        fleet.close()
+    say("elastic", f"heartbeat: a shard process SIGKILLed with no traffic "
+        f"detected after {detected * 1e3:.1f} ms (period "
+        f"{HEARTBEAT_S:.1f} s, deadline {2 * HEARTBEAT_S:.1f} s), recovered "
+        f"by {recovered * 1e3:.1f} ms; the full table bit-equal after it")
+    return outs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", metavar="NAME.cu", action="append",
@@ -2482,6 +2792,14 @@ def main(argv=None) -> int:
     # 13.-14. the scheduler, and serving with the re-planning controller
     phase_sched(torch)
     replan_launches = phase_replan(torch, counters)
+
+    # 15. the elastic PS fleet, chaos and fleet checkpoints
+    t0 = time.perf_counter()
+    phase_elastic(torch, {**counters,
+                          "embedding_bag": bk.embedding_bag_cuda})
+    elastic_step_syncs(torch)
+    phase_elastic_processes(torch)
+    say("elastic", f"phase 15 took {time.perf_counter() - t0:.1f} s")
 
     paths = (("llama3.2-1b serve", llama_launches),
              ("llama3.2-1b serve --replan", replan_launches),

@@ -559,9 +559,8 @@ def ctr_replan_factory(config: ReplanConfig | None = None, *,
                        scheduler=None, fleet=None, job=None,
                        layer_specs=None, base_index: int = 0, device=None):
     """``ps_fleet -> ReplanController`` factory for the CTR-over-PS
-    workload — the shape the reference's ``train_ctr_elastic`` takes as
-    its ``replan=`` parameter (the port's elastic fleet is not written
-    yet).
+    workload — the shape :func:`repro_torch.ps.workload.train_ctr_elastic`
+    takes as its ``replan=`` parameter (``train --sparse-ps --replan``).
 
     Defaults: the paper's CTR-DNN layer specs scheduled over
     ``default_fleet()`` with a small-budget fused :class:`RLScheduler`

@@ -18,11 +18,16 @@ double-buffered pull/push overlap and tier-aware row placement:
   PYTHONPATH=src python -m repro_torch.launch.train --sparse-ps \\
       --steps 200 --ps-shards 4 --device cuda
 
-The elastic fleet's flags (``--ps-optimizer`` other than ``none``,
-``--ps-event``, ``--ckpt-dir``/``--ckpt-every``, ``--ps-fault``) and
-``--replan`` raise ``NotImplementedError``: they wait for ROADMAP.md queue
-1 item 11 (the re-planning controller is ported, ``core/replan.py``, but
-the reference runs it over the elastic fleet's telemetry and health).
+A PS-hosted optimizer (``--ps-optimizer sgd|adagrad|adam``), scripted
+fleet events (``--ps-event``), chaos (``--ps-fault``, ``--ckpt-dir`` +
+``--ckpt-every``) or ``--replan`` train over the **elastic fleet**
+instead (``repro_torch.ps.elastic``; chaos forces sync mode), e.g.:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --sparse-ps \\
+      --steps 30 --ps-transport multiproc --ps-optimizer adagrad \\
+      --ps-event 10:join --ps-event 20:kill:0
+  PYTHONPATH=src python -m repro_torch.launch.train --sparse-ps --replan \\
+      --replan-window-steps 5 --ps-event 20:kill:0
 """
 
 from __future__ import annotations
@@ -110,51 +115,91 @@ def train(arch, *, reduced: bool = True, steps: int = 50, batch: int = 8,
     }
 
 
-#: what the elastic fleet and the re-planner would need
-ELASTIC_TODO = ("the elastic PS fleet (PS-hosted optimizers, scripted fleet "
-                "events, fault injection, fleet checkpoints) is not ported "
-                "yet: ROADMAP.md queue 1 item 11")
-REPLAN_TODO = ("--replan re-plans over the elastic PS fleet's telemetry and "
-               "health, and the elastic fleet is not ported yet: ROADMAP.md "
-               "queue 1 item 11")
-
-
 def train_sparse_ps(*, steps: int, batch: int | None = None,
                     lr: float | None = None, num_shards: int = 4,
                     sync: bool = False, partition: str = "mod",
                     repin_interval: int = 50, log_every: int = 10,
                     transport: str | None = None, device=None,
-                    optimizer: str = "none", events=None,
+                    optimizer: str = "none",
+                    events: list[tuple[int, str, int | None]] | None = None,
+                    staleness_bound: int = 8,
                     ckpt_dir: str | None = None, ckpt_every: int = 0,
                     fault_schedule: str | None = None,
-                    replan: bool = False) -> dict:
+                    fault_seed: int = 0, replan=None) -> dict:
     """The ``--sparse-ps`` path: the CTR model over the sharded PS
     (``repro_torch.ps``) on ``device`` (default ``cuda``) — async
     double-buffered pull/push unless ``sync``.  ``batch``/``lr`` default
     to the CTR workload's own values; ``transport`` picks the PS backend
     (``inproc`` | ``multiproc``).
 
-    ``optimizer`` other than ``"none"``, ``events``, ``ckpt_dir`` /
-    ``ckpt_every``, ``fault_schedule`` and ``replan`` need the elastic
-    fleet: each raises ``NotImplementedError`` naming its ROADMAP item
-    rather than running something else."""
+    ``optimizer="none"`` (default) keeps the static :class:`ShardedTable`
+    with client-side SGD and the hot cache; any other value
+    (``sgd``/``adagrad``/``adam``) trains over the **elastic fleet** with
+    the optimizer hosted on the PS shards, and ``events`` (parsed
+    ``(step, action, shard)`` tuples, see :func:`_parse_ps_events`)
+    script fleet changes mid-run (:func:`repro_torch.ps.workload.
+    train_ctr_elastic`).
+
+    ``ckpt_dir`` + ``ckpt_every`` arm crash-consistent unified
+    checkpoints (fleet slabs + optimizer state + tower + data cursor);
+    after a correlated primary+backup loss the run restores the newest
+    checkpoint and replays to a bit-exact trajectory.  ``fault_schedule``
+    (``repro_torch.ps.faults.parse_schedule`` syntax, seeded by
+    ``fault_seed``) injects deterministic chaos.  Both force the elastic
+    fleet and sync mode.
+
+    ``replan`` (a :class:`repro_torch.core.replan.ReplanConfig`) arms the
+    reactive re-planning controller (``ctr_replan_factory``, its search
+    on ``device``): live PS telemetry + fleet health are windowed into
+    interval rates, drift triggers a warm-started re-plan, and the
+    decisions land in the summary under ``"replan"``.  Forces the
+    elastic fleet (the controller consumes fleet health).
+    """
     import dataclasses
 
-    from repro_torch.ps.workload import CTRConfig, train_ctr_ps
+    from repro_torch.ps.workload import (
+        CTRConfig, train_ctr_elastic, train_ctr_ps,
+    )
 
-    if optimizer != "none" or events or ckpt_dir or ckpt_every \
-            or fault_schedule:
-        raise NotImplementedError(ELASTIC_TODO)
-    if replan:
-        raise NotImplementedError(REPLAN_TODO)
     overrides = {k: v for k, v in (("batch", batch), ("lr", lr))
                  if v is not None}
     cfg = dataclasses.replace(CTRConfig(), **overrides)
+    chaos = bool((ckpt_dir and ckpt_every) or fault_schedule)
+    if optimizer != "none" or events or chaos or replan is not None:
+        factory = None
+        if replan is not None:
+            from repro_torch.core.replan import ctr_replan_factory
+
+            factory = ctr_replan_factory(replan, device=device)
+        return train_ctr_elastic(
+            cfg, steps=steps, num_shards=num_shards,
+            optimizer=optimizer if optimizer != "none" else "sgd",
+            transport=transport,
+            mode="sync" if sync or chaos else "async",
+            events=events, staleness_bound=staleness_bound,
+            fault_schedule=fault_schedule, fault_seed=fault_seed,
+            ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, replan=factory,
+            log_every=log_every, device=device)
     return train_ctr_ps(cfg, steps=steps, num_shards=num_shards,
                         mode="sync" if sync else "async",
                         partition=partition, repin_interval=repin_interval,
                         log_every=log_every, transport=transport,
                         device=device)
+
+
+def _parse_ps_events(specs: list[str]) -> list[tuple[int, str, int | None]]:
+    """``STEP:ACTION[:SHARD]`` → scripted fleet events, e.g.
+    ``40:join`` / ``80:kill:0`` / ``120:leave:1``."""
+    events = []
+    for spec in specs:
+        parts = spec.split(":")
+        if len(parts) not in (2, 3) or parts[1] not in ("join", "kill",
+                                                        "leave"):
+            raise SystemExit(f"bad --ps-event {spec!r} "
+                             f"(want STEP:join|kill|leave[:SHARD])")
+        events.append((int(parts[0]), parts[1],
+                       int(parts[2]) if len(parts) == 3 else None))
+    return events
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -191,20 +236,33 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ps-optimizer",
                     choices=("none", "sgd", "adagrad", "adam"),
                     default="none",
-                    help="PS-hosted optimizer; any value but 'none' needs "
-                         "the elastic fleet (not ported: raises)")
+                    help="PS-hosted optimizer; any value but 'none' trains "
+                         "over the elastic fleet")
     ap.add_argument("--ps-event", action="append", default=[],
                     metavar="STEP:ACTION[:SHARD]",
-                    help="scripted elastic fleet event (not ported: raises)")
+                    help="scripted elastic fleet event, repeatable — e.g. "
+                         "'40:join', '80:kill:0', '120:leave:1'")
+    ap.add_argument("--ps-staleness-bound", type=int, default=8,
+                    help="max updates a pull may miss during live "
+                         "migration (0 = full dual-write)")
     ap.add_argument("--ckpt-dir", default=None,
-                    help="unified fleet checkpoints (not ported: raises)")
+                    help="unified fleet checkpoints (PS slabs + optimizer "
+                         "state + tower + data cursor) under this "
+                         "directory; restores after correlated "
+                         "primary+backup loss replay bit-exactly")
     ap.add_argument("--ckpt-every", type=int, default=0,
-                    help="fleet checkpoint cadence (not ported: raises)")
+                    help="checkpoint cadence in steps (0 = off)")
     ap.add_argument("--ps-fault", default=None, metavar="RULE[;RULE...]",
-                    help="deterministic fault schedule (not ported: raises)")
+                    help="deterministic fault schedule, e.g. "
+                         "'drop_reply,op=grad,after=100,times=2;"
+                         "crash,shard=0,after=400,times=1' "
+                         "(see repro_torch.ps.faults.parse_schedule)")
+    ap.add_argument("--ps-fault-seed", type=int, default=0)
     ap.add_argument("--replan", action="store_true",
-                    help="reactive re-planning over the elastic fleet "
-                         "(not ported: raises)")
+                    help="arm the reactive re-planning controller: window "
+                         "PS telemetry + fleet health into interval rates, "
+                         "re-run the warm-started RL search on drift "
+                         "(forces the elastic fleet)")
     ap.add_argument("--replan-window-steps", type=int, default=25,
                     help="steps per telemetry window")
     ap.add_argument("--replan-bw-tol", type=float, default=0.5,
@@ -226,16 +284,27 @@ def main(argv: list[str] | None = None) -> None:
         # before any transport spawn, so shard workers inherit REPRO_OBS
         obs.configure(run_dir=args.obs_dir)
     if args.sparse_ps:
+        replan_cfg = None
+        if args.replan:
+            from repro_torch.core.replan import ReplanConfig
+
+            replan_cfg = ReplanConfig(
+                window_steps=args.replan_window_steps,
+                bw_tolerance=args.replan_bw_tol,
+                switch_margin=args.replan_margin,
+                cooldown_windows=args.replan_cooldown)
         summary = train_sparse_ps(
             steps=args.steps, batch=args.batch, lr=args.lr,
             num_shards=args.ps_shards, sync=args.ps_sync,
             partition=args.ps_partition, transport=args.ps_transport,
             device=args.device, optimizer=args.ps_optimizer,
-            events=args.ps_event, ckpt_dir=args.ckpt_dir,
-            ckpt_every=args.ckpt_every, fault_schedule=args.ps_fault,
-            replan=args.replan)
-        for key in ("step_times", "step_ts", "losses"):
-            summary.pop(key)
+            events=_parse_ps_events(args.ps_event),
+            staleness_bound=args.ps_staleness_bound,
+            ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+            fault_schedule=args.ps_fault, fault_seed=args.ps_fault_seed,
+            replan=replan_cfg)
+        for key in ("step_times", "step_ts", "losses", "injections"):
+            summary.pop(key, None)
     else:
         summary = train(args.arch, reduced=args.reduced, steps=args.steps,
                         batch=args.batch if args.batch is not None else 8,

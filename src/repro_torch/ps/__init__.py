@@ -2,12 +2,15 @@
 
 ``ShardedTable`` vocab-partitions sparse embedding tables across PS
 shards behind a pluggable ``Transport`` (in-process queues or real
-worker processes) and keeps a hot-row cache on the device; ``PSClient``
-overlaps the pulls/pushes with compute (double-buffered); ``TierPlacer``
-re-pins hot rows from the access monitor's decisions; ``PSTelemetry``
-meters per-shard traffic and feeds it back to the cost model;
-``train_ctr_ps`` trains the CTR model over them.  The elastic fleet
-waits for a later slice (ROADMAP.md queue 1 item 11).
+worker processes) and keeps a hot-row cache on the device;
+``ElasticPSFleet`` makes the shard set elastic — join/leave/kill with
+live migration and replica recovery, PS-hosted optimizers — with
+``FaultInjector`` for seeded chaos and ``FleetCheckpointer`` for
+crash-consistent fleet checkpoints; ``PSClient`` overlaps the
+pulls/pushes with compute (double-buffered); ``TierPlacer`` re-pins hot
+rows from the access monitor's decisions; ``PSTelemetry`` meters
+per-shard traffic and feeds it back to the cost model; ``train_ctr_ps``
+and ``train_ctr_elastic`` train the CTR model over them.
 
 Exports resolve lazily (PEP 562): a spawned shard worker process imports
 ``repro_torch.ps.server`` through this package, and must get the
@@ -43,6 +46,18 @@ _EXPORTS = {
     "PSShardSlow": "repro_torch.ps.transport",
     "RetryPolicy": "repro_torch.ps.transport",
     "ShardServer": "repro_torch.ps.server",
+    "make_fleet": "repro_torch.ps.workload",
+    "train_ctr_elastic": "repro_torch.ps.workload",
+    "ElasticPSFleet": "repro_torch.ps.elastic",
+    "BucketSpec": "repro_torch.ps.elastic",
+    "PSUnrecoverable": "repro_torch.ps.elastic",
+    "FaultInjector": "repro_torch.ps.faults",
+    "FaultRule": "repro_torch.ps.faults",
+    "parse_schedule": "repro_torch.ps.faults",
+    "FleetCheckpointer": "repro_torch.ps.snapshot",
+    "snapshot_fleet": "repro_torch.ps.snapshot",
+    "load_fleet_checkpoint": "repro_torch.ps.snapshot",
+    "save_fleet_checkpoint": "repro_torch.ps.snapshot",
 }
 
 __all__ = sorted(_EXPORTS)

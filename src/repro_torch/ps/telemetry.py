@@ -113,12 +113,30 @@ class PSTelemetry:
                      for s in range(num_shards)]
         self.push = [ShardCounters(self.registry, "push", s)
                      for s in range(num_shards)]
+        self.events: list[dict] = []
+
+    def ensure(self, num_shards: int) -> None:
+        """Grow the per-shard counter lists (elastic fleets add shards at
+        runtime; counters for departed shards are kept — traffic history
+        stays additive)."""
+        with self._lock:
+            while self.num_shards < num_shards:
+                s = self.num_shards
+                self.pull.append(ShardCounters(self.registry, "pull", s))
+                self.push.append(ShardCounters(self.registry, "push", s))
+                self.num_shards += 1
 
     def close(self) -> None:
         """Mark the backing registry closed (idempotent).  Called by the
-        owning table on shutdown; reads (``totals``/``shard_report``)
-        keep working as history."""
+        owning table or fleet on shutdown; reads (``totals``/
+        ``shard_report``) keep working as history."""
         self.registry.close()
+
+    def record_event(self, event: dict) -> None:
+        """Log one fleet lifecycle event (join/leave/kill/migrate/recover
+        dicts from :class:`~repro_torch.ps.elastic.ElasticPSFleet`)."""
+        with self._lock:
+            self.events.append(dict(event))
 
     def record(self, op: str, *, rows: np.ndarray, bytes_: np.ndarray,
                seconds: float, hot_rows: np.ndarray | None = None) -> None:

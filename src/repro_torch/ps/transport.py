@@ -1,8 +1,9 @@
 """Pluggable worker↔PS transport (HeterPS §3's network hop, made real;
 copy of ``repro.ps.transport``).
 
-Every PS consumer (:class:`~repro_torch.ps.sharding.ShardedTable`, and
-through it ``PSClient``) speaks the message protocol of
+Every PS consumer (:class:`~repro_torch.ps.sharding.ShardedTable`,
+:class:`~repro_torch.ps.elastic.ElasticPSFleet`, and through them
+``PSClient``) speaks the message protocol of
 :mod:`repro_torch.ps.server` to shard endpoints through one of two backends:
 
 * :class:`InProcTransport` — shards are :class:`~repro_torch.ps.server.
@@ -45,12 +46,14 @@ discarded by seq mismatch.
 
 ``MultiprocTransport`` additionally runs a **heartbeat** thread: dead
 worker processes are detected within ``heartbeat_s`` and reported
-through ``on_shard_lost`` instead of on the next pull/push touch.
+through ``on_shard_lost`` (the elastic fleet hooks this to recover
+proactively) instead of on the next pull/push touch.
 
-``kill()`` terminates the worker *without* any flush, so whatever the
-shard acked last is what a replica must reproduce.  The elastic fleet,
-its replicas and the fault injector that use these hooks wait for a
-later slice of the port (ROADMAP.md queue 1 item 11).
+``kill()`` is the fault injector: it terminates the worker *without*
+any flush, so whatever the shard acked last is exactly what a replica
+must reproduce.  :class:`repro_torch.ps.faults.FaultInjector` wraps any
+transport for deterministic chaos (delays, dropped/dup replies,
+transient recv errors, scheduled crashes).
 """
 
 from __future__ import annotations

@@ -26,7 +26,8 @@ MODULES = ["repro_torch", "repro_torch.launch.serve",
            "repro_torch.core", "repro_torch.core.torch_cost",
            "repro_torch.core.schedulers", "repro_torch.core.schedulers.rl",
            "repro_torch.core.schedulers.policy", "repro_torch.core.replan",
-           "repro_torch.obs.bridge"]
+           "repro_torch.obs.bridge", "repro_torch.ps.elastic",
+           "repro_torch.ps.faults", "repro_torch.ps.snapshot"]
 
 
 @pytest.fixture(scope="module")
@@ -52,6 +53,22 @@ def loaded_after_import():
 @pytest.mark.parametrize("module", MODULES)
 def test_import_loads_no_jax_and_no_reference(loaded_after_import, module):
     assert loaded_after_import[module] == []
+
+
+@pytest.mark.parametrize("module", ["repro_torch.ps.server",
+                                    "repro_torch.ps.transport"])
+def test_shard_worker_imports_load_no_torch(module):
+    """A spawned shard process imports the server (and the transport
+    beside it) through the lazy package inits: no torch, no jax."""
+    code = (f"import importlib, sys; importlib.import_module({module!r}); "
+            "print(sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('torch', 'jax', 'repro')))")
+    proc = subprocess.run(
+        [sys.executable, "-c", code],
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        capture_output=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr.decode()
+    assert proc.stdout.decode().strip() == "[]"
 
 
 _FORBIDDEN = re.compile(

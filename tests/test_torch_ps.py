@@ -17,6 +17,7 @@ pushed gradients).
 from __future__ import annotations
 
 import dataclasses
+import json
 import signal
 import subprocess
 import sys
@@ -590,27 +591,152 @@ def test_sparse_ps_defaults_to_cuda():
         ttrain.train_sparse_ps(steps=1)
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    ({"optimizer": "adagrad"}, "item 11"),
-    ({"events": ["10:join"]}, "item 11"),
-    ({"ckpt_dir": "ckpt", "ckpt_every": 5}, "item 11"),
-    ({"fault_schedule": "crash,shard=0,after=4"}, "item 11"),
-    ({"replan": True}, "item 11"),
-])
-def test_elastic_and_replan_options_raise(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        ttrain.train_sparse_ps(steps=1, device="cpu", **kwargs)
+#: one short run a case: each elastic option of ``train_sparse_ps`` (and
+#: its CLI flag) forces the elastic fleet; a kill at step 20 lets the
+#: summaries show a recovery.  Runs with a kill are sync: in async mode
+#: the puller and the pusher may both trip over the dead shard, and the
+#: second recovery (a no-op, in both packages) adds an event or not by
+#: timing.
+ELASTIC_RUN = dict(steps=30, batch=32, num_shards=3, log_every=0)
+ELASTIC_OPTIONS = {
+    "optimizer": dict(optimizer="adagrad"),
+    "events": dict(events=[(10, "join", None), (20, "kill", 0)],
+                   staleness_bound=0, sync=True),
+    "checkpoints": dict(ckpt_every=5),
+    "faults": dict(fault_schedule="crash,op=grad,shard=0,after=100,times=1",
+                   fault_seed=1),
+    "replan": dict(events=[(20, "kill", 0)], sync=True),
+}
 
 
-@pytest.mark.parametrize("flags", [["--ps-optimizer", "adam"],
-                                   ["--ps-event", "40:join"],
-                                   ["--ckpt-dir", "c", "--ckpt-every", "2"],
-                                   ["--ps-fault", "crash,shard=0"],
+@pytest.fixture
+def reference_replans_with_greedy(monkeypatch):
+    """The reference's ``ctr_replan_factory`` with ``Greedy`` in place of
+    its default fused ``RLScheduler``, which raises on this JAX (R1)."""
+    from repro.core import replan as jrp
+    from repro.core.schedulers import GreedyScheduler
+
+    factory = jrp.ctr_replan_factory
+    monkeypatch.setattr(jrp, "ctr_replan_factory", lambda config, **kw:
+                        factory(config, scheduler=GreedyScheduler(), **kw))
+
+
+def _assert_same_elastic_run(out, ref):
+    """What an elastic run's summary must share with the reference's from
+    the same options (the initial tables differ: each package draws its
+    own): the steps, the fleet's events, recoveries, restores,
+    checkpoints, injections and the re-planner's windows."""
+    for key in ref:
+        assert key in out, key
+    for key in ("mode", "steps", "optimizer", "live_shards", "restores"):
+        assert out[key] == ref[key], key
+    assert [e["kind"] for e in out["events"]] == \
+        [e["kind"] for e in ref["events"]]
+    assert [s for s, _ in out["checkpoints"]] == \
+        [s for s, _ in ref["checkpoints"]]
+    assert out.get("injections") == ref.get("injections")
+    assert all(np.isfinite(out[k]) for k in ("first_loss", "last_loss"))
+    if ref["replan"] is None:
+        assert out["replan"] is None
+        return
+    for key in ("windows", "calibrations", "considered"):
+        assert out["replan"][key] == ref["replan"][key], key
+    assert [(d["kind"], d["reasons"]) for d in out["replan"]["decisions"]] \
+        == [(d["kind"], d["reasons"]) for d in ref["replan"]["decisions"]]
+    assert "errors" not in out["replan"]
+
+
+@pytest.mark.parametrize("case", sorted(ELASTIC_OPTIONS))
+def test_elastic_options_follow_the_reference(
+        case, tmp_path, reference_replans_with_greedy):
+    """Each elastic option of ``train_sparse_ps`` on the CPU against the
+    reference's ``train_sparse_ps`` with the same option.  The port's
+    ``--replan`` runs its default search (on the CPU here)."""
+    from repro.core.replan import ReplanConfig as JReplanConfig
+    from repro.launch import train as jtrain
+    from repro_torch.core.replan import ReplanConfig
+
+    kw = dict(ELASTIC_RUN, **ELASTIC_OPTIONS[case])
+    jkw, tkw = dict(kw), dict(kw)
+    if case == "checkpoints":
+        jkw["ckpt_dir"] = str(tmp_path / "ref")
+        tkw["ckpt_dir"] = str(tmp_path / "port")
+    if case == "replan":
+        # bandwidth drift is parked out of reach: it follows host timing
+        # noise, and the kill's edge is the signal under test
+        jkw["replan"] = JReplanConfig(window_steps=5, bw_tolerance=5.0)
+        tkw["replan"] = ReplanConfig(window_steps=5, bw_tolerance=5.0)
+    ref = jtrain.train_sparse_ps(**jkw)
+    out = ttrain.train_sparse_ps(**tkw, device="cpu")
+    _assert_same_elastic_run(out, ref)
+    assert out["devices"] == {"tower": ["cpu"]}
+    kinds = [e["kind"] for e in out["events"]]
+    if case in ("events", "faults", "replan"):
+        assert kinds.count("recover") == 1
+    if case == "replan":
+        assert out["replan"]["calibrations"] == 1
+        assert out["replan"]["considered"] == 1
+
+
+#: the same options as CLI flags (``{ckpt}`` is a fresh directory)
+ELASTIC_FLAGS = [
+    ["--ps-optimizer", "adam"],
+    ["--ps-event", "10:join", "--ps-event", "20:kill:0",
+     "--ps-staleness-bound", "0", "--ps-sync"],
+    ["--ckpt-dir", "{ckpt}", "--ckpt-every", "5"],
+    ["--ps-fault", "crash,op=grad,shard=0,after=100,times=1",
+     "--ps-fault-seed", "1"],
+    ["--replan", "--replan-window-steps", "5", "--replan-bw-tol", "5.0",
+     "--ps-event", "20:kill:0", "--ps-sync"],
+]
+
+
+@pytest.mark.parametrize("flags", ELASTIC_FLAGS,
+                         ids=lambda f: f[0].lstrip("-"))
+def test_elastic_flags_follow_the_reference(
+        flags, tmp_path, capsys, monkeypatch, reference_replans_with_greedy):
+    """``python -m repro_torch.launch.train --sparse-ps --device cpu``
+    with each elastic flag against the reference's CLI with the same
+    flags: the two JSON summaries agree."""
+    from repro.launch import train as jtrain
+
+    base = ["--sparse-ps", "--steps", "30", "--batch", "32",
+            "--ps-shards", "3"]
+
+    def argv(who):
+        return base + [f.format(ckpt=tmp_path / who) for f in flags]
+
+    def summary():
+        text = capsys.readouterr().out
+        return json.loads(text[text.index("{"):])
+
+    ttrain.main(argv("port") + ["--device", "cpu"])
+    out = summary()
+    monkeypatch.setattr(sys, "argv", ["train"] + argv("ref"))
+    jtrain.main()
+    ref = summary()
+    _assert_same_elastic_run(out, ref)
+    assert sorted(out) == sorted([*ref, "devices", "pull_seconds",
+                                  "push_seconds"])
+
+
+@pytest.mark.parametrize("flags", [["--ps-optimizer", "adagrad"],
+                                   ["--ps-event", "5:kill:0"],
                                    ["--replan"]])
-def test_elastic_and_replan_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+def test_elastic_sparse_ps_defaults_to_cuda(flags):
+    """Without ``--device`` the elastic path asks for the card, and
+    raises where there is none (never trains on the CPU instead)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttrain.main(["--sparse-ps", "--steps", "1", *flags])
+
+
+@pytest.mark.parametrize("spec", ["40", "40:grow", "1:kill:0:9"])
+def test_bad_ps_event_rejected(spec):
+    with pytest.raises(SystemExit, match="bad --ps-event"):
         ttrain.main(["--sparse-ps", "--steps", "1", "--device", "cpu",
-                     *flags])
+                     "--ps-event", spec])
 
 
 def test_click_stream_equals_the_reference():

@@ -388,13 +388,59 @@ def test_serve_replan_cli_defaults():
             tserve.replan_controller(args, tadm.AdmissionPolicy(slots=4))
 
 
-def test_train_replan_flags_parse_and_raise_item_11():
+def test_train_replan_flags_parse():
     args = ttrain.build_parser().parse_args(
         ["--sparse-ps", "--replan", "--replan-window-steps", "5",
          "--replan-bw-tol", "0.3", "--replan-margin", "0.1",
          "--replan-cooldown", "2"])
     assert (args.replan_window_steps, args.replan_bw_tol,
             args.replan_margin, args.replan_cooldown) == (5, 0.3, 0.1, 2)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ttrain.main(["--sparse-ps", "--replan", "--replan-window-steps", "5",
-                     "--steps", "1", "--device", "cpu"])
+
+
+#: the reference's CTR pin config (tests/test_ps_elastic.py)
+CTR_SMALL = dict(vocab=5_000, emb_dim=8, slots=8, tower=(32,), batch=64)
+
+
+@pytest.mark.parametrize("optimizer,mode", [("sgd", "sync"),
+                                            ("adagrad", "sync"),
+                                            ("adam", "async")])
+def test_train_with_the_replanner_follows_the_reference(optimizer, mode):
+    """``train_ctr_elastic(replan=ctr_replan_factory(...))`` from the
+    reference's table and tower, ``Greedy`` on both sides: losses within
+    1e-4 in sync mode, and in both modes the same windows, calibration
+    and drift considerations (the shard kill's edge; bandwidth drift is
+    parked out of reach, it follows host timing noise)."""
+    from repro.ps import workload as jw
+    from repro_torch.ps import workload as tw
+
+    import jax
+
+    jcfg, cfg = jw.CTRConfig(**CTR_SMALL), tw.CTRConfig(**CTR_SMALL)
+    kw = dict(steps=30, num_shards=3, optimizer=optimizer, mode=mode,
+              events=[(20, "kill", 0)])
+    ref = jw.train_ctr_elastic(jcfg, **kw, replan=jrp.ctr_replan_factory(
+        jrp.ReplanConfig(window_steps=5, bw_tolerance=5.0),
+        scheduler=JGreedy()))
+    dense = np.asarray(jax.random.normal(
+        jax.random.PRNGKey(jcfg.seed), (jcfg.vocab, jcfg.emb_dim))
+        * 0.05, np.float32)
+    tower = jax.tree.map(np.asarray,
+                         jw.init_tower(jcfg, jax.random.PRNGKey(1)))
+    out = tw.train_ctr_elastic(
+        cfg, **kw, device="cpu", dense=dense,
+        tower=tw.tower_from_numpy(tower, cfg, device="cpu"),
+        replan=trp.ctr_replan_factory(
+            trp.ReplanConfig(window_steps=5, bw_tolerance=5.0),
+            scheduler=TGreedy(), device="cpu"))
+    if mode == "sync":
+        np.testing.assert_allclose(out["losses"], ref["losses"], rtol=0,
+                                   atol=1e-4)
+    t, j = out["replan"], ref["replan"]
+    for key in ("windows", "calibrations", "considered", "applied"):
+        assert t[key] == j[key], key
+    assert (t["windows"], t["calibrations"], t["considered"]) == (5, 1, 1)
+    assert [(d["kind"], d["reasons"]) for d in t["decisions"]] == \
+        [(d["kind"], d["reasons"]) for d in j["decisions"]]
+    assert "fleet_events" in t["decisions"][-1]["reasons"]
+    assert len(t["incumbent"]["assignment"]) == \
+        len(j["incumbent"]["assignment"])
