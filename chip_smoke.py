@@ -13,19 +13,26 @@ result lines:
              started together;
 3. kernels — each kernel against its plain PyTorch version on the card: paged
              decode at the test shapes, the llama3.2-1b and olmoe-1b-7b decode
-             shapes and sequences split over KV pages (across split boundaries,
+             shapes, phase 16's decode shapes (G 16, 2 with gemma2-2b's
+             window and soft cap at hd 256, 6 and 8) and sequences split
+             over KV pages (across split boundaries,
              ending in the first split, a window starting mid-split, a table
              width that does not divide into the splits), float32 (atol 2e-5)
              and bfloat16 (atol 2e-2), each case bit-equal over two calls; MoE
              dispatch and combine at the reference test sweep, olmoe-1b-7b's
-             decode and prefill shapes and with out-of-range indices, float32
+             and qwen3-moe-30b-a3b's decode and prefill shapes and with
+             out-of-range indices, float32
              (atol 1e-5) and bfloat16 (atol 5e-2), and bit-equal to the plain
              versions with the kernels' rounding (dispatch formed in float32
              and cast once; ``combine_slot_ordered``), on the contiguous and
              the strided slab, and over two calls; the MoE autograd Functions'
              dx / dbuf / dw against autograd of the slot versions at olmoe's
-             prefill shape (atol 1e-5, dw 1e-4); flash attention forward at the
-             reference sweep, partial tiles and head dim 32 (float32 atol
+             prefill shape (float32 atol 1e-5, dw 1e-4) and, in bfloat16
+             (within 4 bfloat16 ulps of each gradient's largest value), at
+             olmoe's prefill and training and qwen3-moe's prefill shapes;
+             flash attention forward at the reference sweep, partial tiles,
+             head dim 32, olmoe's training heads at hd 128 and gemma2-2b's
+             4,608-token prefill with its window and soft cap (float32 atol
              2e-5, bfloat16 2e-2) and its dq / dk / dv against autograd of
              the plain version (float32 atol 1e-4 rtol 1e-4 and max|err|
              2e-5, bfloat16 atol 5e-2 rtol 1.6e-2), bfloat16 also within 1
@@ -92,7 +99,12 @@ result lines:
              same way, combine also on the strided slab; the embedding bag
              likewise at the CTR hot-cache lookup, two pooled shapes and
              long bags (those three also in bfloat16), each also after a
-             flush that leaves L2 clean;
+             flush that leaves L2 clean; phase 16's shapes: paged decode at
+             the four archs' decode shapes in their dtypes, the flash
+             forward and backward at gemma2-2b's prefill (hd 256, window
+             4,096, soft cap 50; the library call eager ``flex_attention``,
+             as SDPA takes no soft cap), MoE dispatch and combine at
+             qwen3-moe-30b-a3b's decode and prefill in bfloat16;
 13. sched  — the paper's Table-3 cases (MATCHNET, CTRDNN, 2EMB and NCE
              on the CPU + V100 fleet, MATCHNET on 32 resource types) in one
              ``RLScheduler().schedule_many`` call on the card (150 rounds x
@@ -125,7 +137,25 @@ result lines:
              kill, and with ``--replan`` (one calibration, one drift
              consideration for the kill); a shard process SIGKILLed with no
              traffic, detected by the heartbeat within its deadline and
-             recovered bit-exactly.
+             recovered bit-exactly;
+16. archs  — chatglm3-6b (float32), gemma2-2b (float32), internlm2-20b
+             (bfloat16) and qwen3-moe-30b-a3b (bfloat16) at full width and
+             depth, random weights from seed 0, one model on the card at a
+             time: ``serve_continuous`` on phase 5's mix (gemma2-2b: plus a
+             4,608-token prompt, past its window of 4,096) with the launch
+             counts of phase 5 and 7, a teacher-forced ``decode_step``
+             through the kernels against the plain versions (float32 atol
+             1e-3; bfloat16 within 16 ulps of the largest logit after 48
+             layers, the greedy tokens' agreement printed), tok/s, TTFT,
+             peak memory and a
+             profiled decode step; a 2-layer full-width ``loss_fn`` with
+             gradients of chatglm3-6b, gemma2-2b and internlm2-20b through
+             the kernels against the plain versions (as phase 9); and
+             olmoe-1b-7b trained at all 16 layers in bfloat16 (parameters
+             and AdamW moments): the loss and gradient norm through the
+             kernels against the plain versions before any update, then 3
+             steps of 8 x 2048 tokens with the launches counted, s/step and
+             peak memory.
 
 The scheduler and the elastic fleet have no TPU kernel in the reference
 (``jnp`` under ``jit``; no hot cache on the elastic path), so phases 13-15
@@ -207,6 +237,24 @@ def paged_inputs(torch, *, B, KV, G, hd, ps, P, q_pos, dtype, seed,
     return q, kp, vp, table.contiguous(), pos
 
 
+#: phase 16's decode shapes (4 slots, page size 16): (arch, KV, G, hd,
+#: pages a slot, window, softcap, q_pos), each arch in its dtype
+#: (ARCH_RUNS)
+ARCH_DECODE = (
+    ("chatglm3-6b", 2, 16, 128, 35, None, None, [76, 200, 350, 551]),
+    ("gemma2-2b", 4, 2, 256, 291, 4096, 50.0, [4639, 551, 300, 76]),
+    ("internlm2-20b", 8, 6, 128, 35, None, None, [76, 200, 350, 551]),
+    ("qwen3-moe-30b-a3b", 4, 8, 128, 35, None, None, [76, 200, 350, 551]),
+)
+
+
+#: phase 16's dtypes: float32 where the weights fit the card beside the
+#: run (chatglm3-6b 25 GB, gemma2-2b 10.5 GB), bfloat16 where they do not
+#: (internlm2-20b 80 GB and qwen3-moe-30b-a3b 122 GB in float32)
+ARCH_DTYPE = {"chatglm3-6b": "float32", "gemma2-2b": "float32",
+              "internlm2-20b": "bfloat16", "qwen3-moe-30b-a3b": "bfloat16"}
+
+
 #: (label, B, KV, G, hd, ps, P, window, softcap, q_pos, scratch rows)
 def kernel_cases():
     cases = []
@@ -230,6 +278,11 @@ def kernel_cases():
                   50.0, [127, 70], ()))
     cases.append(("olmoe B4 KV16 G1 hd128", 4, 16, 1, 128, 16, 35, None,
                   None, [543, 300, 77, 0], (3,)))
+    # the decode steps of phase 16's serve runs: 4 slots, 35-page tables
+    # (gemma2: 291 pages, one sequence past its window of 4,096)
+    for label, KV, G, hd, P, w, sc, pos in ARCH_DECODE:
+        cases.append((f"{label} serve B4 KV{KV} G{G} hd{hd}", 4, KV, G, hd,
+                      16, P, w, sc, pos, ()))
     # the split over KV pages (B2 KV2 on P 40 or 37: 10 splits of 4 pages;
     # SPLIT_CASES says what each must show)
     cases.append(("splits: sequences across split boundaries", 2, 2, 4, 64,
@@ -319,7 +372,8 @@ def moe_inputs(torch, nn_moe, mk, *, G, S, D, E, K, cf, dtype, seed):
 
 
 #: (label, G, S, D, E, K, cf): the reference test sweep
-#: (tests/test_kernels.py) and olmoe-1b-7b's decode and prefill shapes
+#: (tests/test_kernels.py) and olmoe-1b-7b's and qwen3-moe-30b-a3b's
+#: decode and prefill shapes
 MOE_CASES = [
     ("test G2 S24 D16 E4 K2 cf1.25", 2, 24, 16, 4, 2, 1.25),
     ("test G1 S64 D32 E8 K2 cf1.0", 1, 64, 32, 8, 2, 1.0),
@@ -327,6 +381,8 @@ MOE_CASES = [
     ("test G1 S8 D16 E4 K4 cf8 (top_k = E)", 1, 8, 16, 4, 4, 8.0),
     ("olmoe decode G4 S1 D2048 E64 K8 C8", 4, 1, 2048, 64, 8, 1.25),
     ("olmoe prefill G1 S512 D2048 E64 K8 C80", 1, 512, 2048, 64, 8, 1.25),
+    ("qwen3 decode G4 S1 D2048 E128 K8 C8", 4, 1, 2048, 128, 8, 1.25),
+    ("qwen3 prefill G1 S512 D2048 E128 K8 C40", 1, 512, 2048, 128, 8, 1.25),
 ]
 
 
@@ -430,69 +486,104 @@ def phase_moe_kernels(torch, mk):
     return worst
 
 
+#: (label, G, S, E, dtype name): the MoE Functions' backward at
+#: olmoe-1b-7b's 512-token prefill (float32 and bfloat16), a slice of its
+#: bfloat16 training batch (2 of 8 sequences of 2,048 tokens) and
+#: qwen3-moe-30b-a3b's prefill in bfloat16; D 2048, K 8, cf 1.25
+MOE_BWD_CASES = (("olmoe prefill G1 S512 E64", 1, 512, 64, "float32"),
+                 ("olmoe prefill G1 S512 E64", 1, 512, 64, "bfloat16"),
+                 ("olmoe train G2 S2048 E64", 2, 2048, 64, "bfloat16"),
+                 ("qwen3 prefill G1 S512 E128", 1, 512, 128, "bfloat16"))
+
+
+def bf16_ulps(torch, t, n: int = 4) -> float:
+    """``n`` bfloat16 ulps at the largest |value| of ``t`` (an ulp is
+    2^-7 of the power of two at or below a value)."""
+    top = t.float().abs().max().item()
+    return n * 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+
+
 def phase_moe_backward(torch, mk):
     """The MoE autograd Functions (``kernels.ops.moe_dispatch`` /
     ``moe_combine`` with ``impl="cuda"``) against autograd of the slot
-    versions at olmoe-1b-7b's 512-token prefill shape, float32: dx through
-    dispatch's backward (the combine kernel), dbuf through combine's
-    backward (the dispatch kernel) at atol 1e-5, dw (a gather-dot over D =
-    2048 in another order) at atol 1e-4.  dw of a dropped pair is 0 (the
-    reference's backward masks it by keep)."""
+    versions on MOE_BWD_CASES: dx through dispatch's backward (the
+    combine kernel), dbuf through combine's backward (the dispatch
+    kernel) and dw (a gather-dot over D = 2048).  float32: dx and dbuf at
+    atol 1e-5, dw at 1e-4 (a sum in another order).  bfloat16: each
+    within 4 bfloat16 ulps of its largest |value| (the kernels form
+    products in float32 and round once; the slot versions multiply and
+    accumulate in bfloat16, over up to K = 8 terms for dx and D terms
+    for dw).  dw of a dropped pair is 0 (the reference's backward masks
+    it by keep)."""
     from repro_torch.kernels import ops
     from repro_torch.nn import moe as nn_moe
 
-    G, S, D, E, K = 1, 512, 2048, 64, 8
-    g = torch.Generator(device="cuda")
-    g.manual_seed(21)
-    x = torch.randn((G, S, D), generator=g, device="cuda")
-    router = torch.randn((D, E), generator=g, device="cuda") / D ** 0.5
-    C = nn_moe.moe_capacity(S, E, K, 1.25)
-    _, gate, eid, pos, keep = nn_moe.moe_route(router, x, top_k=K,
-                                               capacity=C)
-    wtok = keep.to(torch.float32)
-    w = (gate.reshape(G, S * K) * keep).reshape(G, S, K)
-    safe = torch.where(keep, pos, 0).reshape(G, S, K)
-    g_buf = torch.randn((G, E, C, D), generator=g, device="cuda")
-    g_y = torch.randn((G, S, D), generator=g, device="cuda")
+    D, K = 2048, 8
+    out = {}
+    for label, G, S, E, dname in MOE_BWD_CASES:
+        dt = getattr(torch, dname)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(21)
+        x = torch.randn((G, S, D), generator=g, device="cuda")
+        router = torch.randn((D, E), generator=g, device="cuda") / D ** 0.5
+        C = nn_moe.moe_capacity(S, E, K, 1.25)
+        _, gate, eid, pos, keep = nn_moe.moe_route(router, x, top_k=K,
+                                                   capacity=C)
+        wtok = keep.to(torch.float32)           # as nn.moe passes them
+        w = (gate.reshape(G, S * K) * keep).reshape(G, S, K).to(dt)
+        safe = torch.where(keep, pos, 0).reshape(G, S, K)
+        g_buf = torch.randn((G, E, C, D), generator=g, device="cuda").to(dt)
+        g_y = torch.randn((G, S, D), generator=g, device="cuda").to(dt)
+        x = x.to(dt)
 
-    def grads(impl):
-        xi = x.clone().requires_grad_(True)
-        buf = ops.moe_dispatch(xi, eid, pos, wtok, num_experts=E, capacity=C,
-                               top_k=K, impl=impl)
-        (dx,) = torch.autograd.grad(buf, (xi,), g_buf)
-        b = buf.detach().clone().requires_grad_(True)
-        wi = w.clone().requires_grad_(True)
-        y = ops.moe_combine(b, eid.reshape(G, S, K), safe, wi, impl=impl)
-        dbuf, dw = torch.autograd.grad(y, (b, wi), g_y)
-        return dx, dbuf, torch.where(keep.reshape(G, S, K), dw, 0.0)
+        def grads(impl):
+            xi = x.clone().requires_grad_(True)
+            buf = ops.moe_dispatch(xi, eid, pos, wtok, num_experts=E,
+                                   capacity=C, top_k=K, impl=impl)
+            (dx,) = torch.autograd.grad(buf, (xi,), g_buf)
+            b = buf.detach().clone().requires_grad_(True)
+            wi = w.clone().requires_grad_(True)
+            y = ops.moe_combine(b, eid.reshape(G, S, K), safe, wi, impl=impl)
+            dbuf, dw = torch.autograd.grad(y, (b, wi), g_y)
+            return dx, dbuf, torch.where(keep.reshape(G, S, K), dw, 0.0)
 
-    n0 = (mk.moe_dispatch_cuda.launches, mk.moe_combine_cuda.launches)
-    got = grads("cuda")
-    check((mk.moe_dispatch_cuda.launches - n0[0],
-           mk.moe_combine_cuda.launches - n0[1]) == (2, 2),
-          "the MoE Functions' backward did not launch the other kernel")
-    want = grads("slot")
-    torch.cuda.synchronize()
-    errs = {}
-    for name, a, b, atol in zip(("dx", "dbuf", "dw"), got, want,
-                                (1e-5, 1e-5, 1e-4)):
-        check(bool(torch.isfinite(a).all()), f"MoE backward {name}: "
-              "non-finite")
-        errs[name] = (a - b).abs().max().item()
-        check(errs[name] <= atol, f"MoE backward {name}: max|Function - "
-              f"slot autograd| {errs[name]:.3e} > {atol:.0e}")
-    say("kernels", f"MoE backward at olmoe prefill G1 S512 E64 K8 C{C}: "
-        f"max|err| dx {errs['dx']:.3e}, dbuf {errs['dbuf']:.3e} (atol 1e-5; "
-        f"dispatch's backward is the combine kernel and back), dw "
-        f"{errs['dw']:.3e} (atol 1e-4)")
-    return errs
+        n0 = (mk.moe_dispatch_cuda.launches, mk.moe_combine_cuda.launches)
+        got = grads("cuda")
+        check((mk.moe_dispatch_cuda.launches - n0[0],
+               mk.moe_combine_cuda.launches - n0[1]) == (2, 2),
+              "the MoE Functions' backward did not launch the other kernel")
+        want = grads("slot")
+        torch.cuda.synchronize()
+        errs = {}
+        for name, a, b, atol in zip(("dx", "dbuf", "dw"), got, want,
+                                    (1e-5, 1e-5, 1e-4)):
+            check(a.dtype == dt and bool(torch.isfinite(a.float()).all()),
+                  f"MoE backward {label} {dname} {name}: dtype {a.dtype} or "
+                  "non-finite")
+            if dname == "bfloat16":
+                atol = bf16_ulps(torch, b)
+            errs[name] = (a.float() - b.float()).abs().max().item()
+            check(errs[name] <= atol, f"MoE backward {label} {dname} {name}:"
+                  f" max|Function - slot autograd| {errs[name]:.3e} > "
+                  f"{atol:.3e}")
+            errs[name + "_tol"] = atol
+        say("kernels", f"MoE backward at {label} K{K} C{C} D{D} {dname}: "
+            f"max|err| dx {errs['dx']:.3e}, dbuf {errs['dbuf']:.3e}, dw "
+            f"{errs['dw']:.3e} (atol {errs['dx_tol']:.3e} / "
+            f"{errs['dbuf_tol']:.3e} / {errs['dw_tol']:.3e}; dispatch's "
+            "backward is the combine kernel and back)")
+        out[f"{label} {dname}"] = errs
+        del x, g_buf, g_y, got, want
+    torch.cuda.empty_cache()
+    return out
 
 
 #: (label, B, H, Sq, Sk, hd, causal, window, softcap): the reference sweep
 #: (tests/test_kernels.py: shapes, windows 32/100/128, softcap 50, non
 #: causal, cross lengths), partial tiles, windows that leave rows with no
-#: key, and the shapes train() feeds the kernels (llama3.2-1b's microbatch
-#: of 4, olmoe-1b-7b's heads)
+#: key, the shapes train() feeds the kernels (llama3.2-1b's microbatch
+#: of 4, olmoe-1b-7b's heads) and phase 16's (a sequence of olmoe-1b-7b's
+#: bfloat16 training, gemma2-2b's long prefill past its window)
 FLASH_CASES = [
     ("test B1 H1 S128 hd64", 1, 1, 128, 128, 64, True, None, None),
     ("test B2 H2 S256 hd64", 2, 2, 256, 256, 64, True, None, None),
@@ -518,6 +609,10 @@ FLASH_CASES = [
     ("llama reduced B2 H8 S128 hd32", 2, 8, 128, 128, 32, True, None, None),
     ("causal S200 hd32 window 16 softcap 30", 1, 2, 200, 200, 32, True, 16,
      30.0),
+    ("olmoe / chatglm3 train B1 H16 S2048 hd128", 1, 16, 2048, 2048, 128,
+     True, None, None),
+    ("gemma2 prefill B1 H8 S4608 hd256 window 4096 softcap 50", 1, 8, 4608,
+     4608, 256, True, 4096, 50.0),
 ]
 
 #: keys a forward block takes per step (``Fwd<T, HD>::COLS`` in
@@ -970,37 +1065,39 @@ REQUESTS = [(64, 32), (512, 32), (128, 32), (300, 32), (96, 32), (448, 32),
             (200, 32), (256, 32)]
 
 
-def counted_serve(torch, counters, arch, params):
-    """One ``serve_continuous`` of REQUESTS at full width with every
+def counted_serve(torch, counters, arch, params, *, requests=REQUESTS,
+                  compute_dtype=None, phase="serve"):
+    """One ``serve_continuous`` of ``requests`` at full width with every
     launch count set to 0 just before it and read just after; checks the
     outcomes and prints the rates."""
     from repro_torch.launch.serve import serve_continuous
 
+    kw = dict(reduced=False, device="cuda", requests=requests, slots=4,
+              params=params, compute_dtype=compute_dtype or torch.float32)
     # the same mix once first: CUDA start-up and the first use of every
     # matmul shape stay out of the measured run
     t0 = time.perf_counter()
-    serve_continuous(arch, reduced=False, device="cuda", requests=REQUESTS,
-                     slots=4, params=params)
-    say("serve", f"{arch}: warm-up run of the same mix "
+    serve_continuous(arch, **kw)
+    say(phase, f"{arch}: warm-up run of the same mix "
         f"{time.perf_counter() - t0:.2f} s")
     for fn in counters.values():
         fn.launches = 0
-    out = serve_continuous(arch, reduced=False, device="cuda",
-                           requests=REQUESTS, slots=4, params=params)
+    out = serve_continuous(arch, **kw)
     launches = {name: fn.launches for name, fn in counters.items()}
-    check(out["outcomes"] == ["completed"] * len(REQUESTS),
+    check(out["outcomes"] == ["completed"] * len(requests),
           f"{arch} outcomes {out['outcomes']}")
-    check(out["generated"] == [g for _, g in REQUESTS],
+    check(out["generated"] == [g for _, g in requests],
           f"{arch} generated {out['generated']}")
     check(out["tokens_in_vocab"], f"{arch}: tokens outside the vocabulary")
     check(out["pool_conserved"], f"{arch}: page pool not conserved")
     check(out["decode_steps"] > 0, f"{arch}: no decode step")
     ttft = [t for t in out["ttft_s"] if t is not None]
     toks = sum(out["generated"])
-    say("serve", f"{arch}: {len(REQUESTS)} requests completed, {toks} "
+    out["decode_tok_per_s_in_chunks"] = toks / out["decode_s"]
+    say(phase, f"{arch}: {len(requests)} requests completed, {toks} "
         f"tokens, {out['decode_steps']} decode steps, {out['prefills']} "
         f"prefills; launches {launches}")
-    say("serve", f"{arch}: decode tok/s {toks / out['decode_s']:.1f} "
+    say(phase, f"{arch}: decode tok/s {toks / out['decode_s']:.1f} "
         f"(inside decode chunks, 4 slots), {out['decode_tok_per_s']:.1f} "
         f"(whole run incl. prefills); TTFT p50 "
         f"{statistics.median(ttft) * 1e3:.1f} ms, max "
@@ -1026,7 +1123,7 @@ def first_tokens(torch, lg, plens, vocab):
                         for b, n in enumerate(plens)]).to(torch.int32)[:, None]
 
 
-def check_prefill_flash(launches, layers, prefills, arch):
+def check_prefill_flash(launches, layers, prefills, arch, phase="serve"):
     """Every causal prefill runs the flash forward once per layer; serving
     runs no backward."""
     check(launches["flash_fwd"] == layers * prefills,
@@ -1034,7 +1131,7 @@ def check_prefill_flash(launches, layers, prefills, arch):
           f"{prefills} prefills")
     check(launches["flash_bwd_dkdv"] == launches["flash_bwd_dq"] == 0,
           f"{arch}: serving launched a flash backward")
-    say("serve", f"{arch}: flash_fwd launches = {layers} x {prefills} "
+    say(phase, f"{arch}: flash_fwd launches = {layers} x {prefills} "
         f"prefills = {launches['flash_fwd']}")
 
 
@@ -1162,7 +1259,7 @@ PROFILE_SPLIT = (("embedding_bag", ("embedding_bag",)),
                  ("moe_combine", ("combine_kernel",)),
                  ("flash_fwd", ("fwd_kernel",)),
                  ("flash_bwd", ("dkdv_kernel", "delta_kernel", "dq_kernel")),
-                 ("matmul", ("gemm", "gemv")),
+                 ("matmul", ("gemm", "gemv", "nvjet")),
                  ("copies", ("copy",)))
 
 
@@ -1176,6 +1273,7 @@ def device_split(torch, prof, steps: int, label: str, calls=None):
     split["rest"] = 0.0
     counts = dict.fromkeys(split, 0)
     dev_us, launches = 0.0, 0
+    rest = {}
     for e in prof.key_averages():
         if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                      "cuLaunchKernelEx", "cudaLaunchKernelExC"):
@@ -1189,7 +1287,12 @@ def device_split(torch, prof, steps: int, label: str, calls=None):
                      if any(f in key for f in frags)), "rest")
         split[name] += t
         counts[name] += e.count
+        if name == "rest":
+            rest[e.key] = rest.get(e.key, 0.0) + t
     check(dev_us > 0, f"{label}: the profiler saw no device time")
+    top = sorted(rest.items(), key=lambda kv: -kv[1])[:3]
+    say("profile", f"{label}: the rest's largest kernels: " + "; ".join(
+        f"{k[:60]} {t / 1e3 / steps:.3f} ms" for k, t in top))
     if calls is not None:
         calls.update(counts)
     return (dev_us / 1e3 / steps,
@@ -1226,10 +1329,12 @@ def profile_split(torch, run, label: str, what: str, steps: int):
         say("profile", f"{label} {what}, time per call: " + ", ".join(
             f"{n} {t:.4f} ms ({calls[n]} calls)" for n, t in
             per_call.items()))
-    return per_call
+    return {"per_call": per_call, "host_ms": wall_ms, "device_ms": dev_ms,
+            "idle": idle, "launches": launches, "split_ms": split}
 
 
-def phase_profile(torch, state, label: str, steps: int = 8):
+def phase_profile(torch, state, label: str, steps: int = 8,
+                  compute_dtype=None):
     """``steps`` decode steps at full width (4 slots, KV lengths 77-512),
     split by kernel (:func:`profile_split`)."""
     from repro_torch.models import decoder as dec
@@ -1238,7 +1343,7 @@ def phase_profile(torch, state, label: str, steps: int = 8):
 
     def run():
         dec.decode_loop(params, cfg_p, tok, cache, 0, steps,
-                        compute_dtype=torch.float32)
+                        compute_dtype=compute_dtype or torch.float32)
         torch.cuda.synchronize()
 
     return profile_split(torch, run, label,
@@ -1327,12 +1432,23 @@ def phase_train(torch, counters):
     return launches, out, peak
 
 
-def phase_teacher(torch, counters):
+#: phase 9's 2-layer full-width training checks: (arch, batch, sequence)
+TEACHER_RUNS = (("llama3.2-1b", 2, 2048), ("olmoe-1b-7b", 2, 512))
+#: phase 16's: the flash backward at G 16, at hd 256 with gemma2-2b's
+#: window (a sequence past it) and soft cap, and at G 6
+ARCH_TEACHER_RUNS = (("chatglm3-6b", 2, 2048), ("gemma2-2b", 1, 4608),
+                     ("internlm2-20b", 1, 2048))
+
+
+def phase_teacher(torch, counters, runs=TEACHER_RUNS, phase="teacher"):
     """One ``loss_fn`` and its gradients through the kernels (flash forward
     and backward; for OLMoE also the MoE Functions) against the plain
     versions (``attn_impl="ref"``, ``moe_impl="slot"``) on the card, at full
-    width and 2 layers, float32: llama3.2-1b on 2 x 2048 tokens and
-    olmoe-1b-7b on 2 x 512.  Tolerance: the loss to 1e-5 relative, each
+    width and 2 layers, float32, for each ``(arch, batch, sequence)`` of
+    ``runs``: llama3.2-1b on 2 x 2048 tokens and olmoe-1b-7b on 2 x 512
+    (phase 9), chatglm3-6b on 2 x 2048, gemma2-2b (one local and one
+    global layer) on 1 x 4608 and internlm2-20b on 1 x 2048 (phase 16).
+    Tolerance: the loss to 1e-5 relative, each
     gradient leaf to 1e-3 of its largest entry (attention summed in
     another order through two layers; routing is computed by the same
     code on both sides).  OLMoE trains only at 2 layers on one card: its
@@ -1344,8 +1460,9 @@ def phase_teacher(torch, counters):
     from repro_torch.tree import tree_leaves, tree_unflatten
 
     by_arch = {}
-    for arch, B, S in (("llama3.2-1b", 2, 2048), ("olmoe-1b-7b", 2, 512)):
-        cfg = dataclasses.replace(get_config(arch, reduced=False), repeats=2)
+    for arch, B, S in runs:
+        cfg = dataclasses.replace(get_config(arch, reduced=False),
+                                  repeats=2 // len(get_config(arch).pattern))
         params = dec.init_model(cfg, seed=0, device="cuda")
         batch = _batch_on_card(torch, SyntheticTokenDataset(cfg.vocab, B, S),
                                0)
@@ -1384,7 +1501,7 @@ def phase_teacher(torch, counters):
               f" {loss_k} vs plain {loss_r}")
         check(rel <= 1e-3, f"{arch}: a gradient leaf is off by {rel:.3e} of "
               "its largest entry (> 1e-3)")
-        say("teacher", f"{arch} full width, 2 layers, {B} x {S} tokens: loss "
+        say(phase, f"{arch} full width, 2 layers, {B} x {S} tokens: loss "
             f"{loss_k:.6f} (kernels) vs {loss_r:.6f} (plain), |dloss| "
             f"{dloss:.3e}; worst gradient leaf max|d| / max|g| {rel:.3e} "
             f"(tol 1e-3); kernel launches {launched}")
@@ -1636,45 +1753,91 @@ def time_ms(torch, fn, inputs, reps: int = 5, iters: int = 40) -> float:
     return statistics.median(times)
 
 
-def paged_timing(torch, pk, *, B, KV, G, hd, ps, P, pos, dtype):
+def flex_attention_call(torch, causal, window, softcap, q_pos=None):
+    """``torch.nn.attention.flex_attention`` (eager: PyTorch's unfused
+    implementation) with a ``score_mod`` that soft-caps and masks as the
+    port's kernels do: the library call for attention with a soft cap,
+    which ``scaled_dot_product_attention`` does not take.  ``q_pos``
+    (B,): one query a row at that position (decode); else query r sits at
+    position r."""
+    from torch.nn.attention.flex_attention import flex_attention
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        if softcap is not None:
+            score = softcap * torch.tanh(score / softcap)
+        qp = q_idx if q_pos is None else q_pos[b]
+        ok = (qp >= kv_idx) if causal or q_pos is not None else (
+            kv_idx >= 0)
+        if window is not None:
+            ok = ok & (qp - kv_idx < window)
+        return torch.where(ok, score, -float("inf"))
+
+    return lambda q, k, v: flex_attention(q, k, v, score_mod=score_mod)
+
+
+def paged_timing(torch, pk, *, B, KV, G, hd, ps, P, pos, dtype,
+                 window=None, softcap=None):
     """paged_decode at one shape beside its bound, the plain version and
-    SDPA over the gathered, GQA-expanded K/V, rotating over enough input
-    sets to exceed the 50 MB L2 three times."""
+    one library call over the gathered, GQA-expanded K/V (SDPA with the
+    causal and window mask; flex_attention where a soft cap is on),
+    rotating over enough input sets to exceed the 50 MB L2 three times."""
     F = torch.nn.functional
     el = torch.finfo(dtype).bits // 8
     set_bytes = 2 * (1 + B * P) * ps * KV * hd * el
     sets = [paged_inputs(torch, B=B, KV=KV, G=G, hd=hd, ps=ps, P=P,
                          q_pos=pos, dtype=dtype, seed=100 + i)
             for i in range(max(4, math.ceil(150e6 / set_bytes)))]
-    kern = time_ms(torch, lambda *a: pk.paged_decode_cuda(*a), sets)
-    plain = time_ms(torch, lambda *a: pk.paged_decode_gather(*a), sets)
+    kw = {"window": window, "softcap": softcap}
+    kern = time_ms(torch, lambda *a: pk.paged_decode_cuda(*a, **kw), sets)
+    plain = time_ms(torch, lambda *a: pk.paged_decode_gather(*a, **kw), sets)
 
-    # library yardstick: SDPA over the gathered, GQA-expanded K/V
+    # library yardstick over the gathered, GQA-expanded K/V
     def gathered(q, kp, vp, table, qp):
         S = P * ps
         k = kp[table.long()].reshape(B, S, KV, hd)
         v = vp[table.long()].reshape(B, S, KV, hd)
         k = k.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
         v = v.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
-        mask = (torch.arange(S, device="cuda")[None] <= qp[:, None].long())
+        kpos = torch.arange(S, device="cuda")[None]
+        mask = kpos <= qp[:, None].long()
+        if window is not None:
+            mask &= qp[:, None].long() - kpos < window
         return (q.reshape(B, KV * G, 1, hd), k.contiguous(), v.contiguous(),
-                mask[:, None, None, :])
+                mask[:, None, None, :], qp)
 
     lib_sets = [gathered(*s) for s in sets[:max(2, len(sets) // 2)]]
-    lib = time_ms(torch, lambda q, k, v, m: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=m), lib_sets)
-    o_lib = F.scaled_dot_product_attention(*lib_sets[0][:3],
-                                           attn_mask=lib_sets[0][3])
-    ref = pk.paged_decode_gather(*sets[0]).reshape(B, KV * G, 1, hd)
+    if softcap is None:
+        lib_name = "sdpa"
+
+        def lib_fn(q, k, v, m, qp):
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=m)
+    else:
+        lib_name = "flex_attention (eager)"
+        calls = {}
+
+        def lib_fn(q, k, v, m, qp):
+            if qp.data_ptr() not in calls:
+                calls[qp.data_ptr()] = flex_attention_call(
+                    torch, True, window, softcap, q_pos=qp.long())
+            return calls[qp.data_ptr()](q, k, v)
+    o_lib = lib_fn(*lib_sets[0])
+    lib = time_ms(torch, lib_fn, lib_sets)
+    ref = pk.paged_decode_gather(*sets[0], **kw).reshape(B, KV * G, 1, hd)
     tol = 1e-3 if dtype == torch.float32 else TOL["bfloat16"]
     check((o_lib.float() - ref.float()).abs().max().item() <= tol,
-          "library yardstick disagrees with the gather")
+          f"library yardstick ({lib_name}) disagrees with the gather")
 
-    # the least time for this work: the K/V rows at positions 0..q_pos
-    # (no window here), the live page-table entries, q, out and q_pos once
-    # over the memory rate, or the flops over the f32 rate
-    rows = sum(min(p, P * ps - 1) + 1 for p in pos)
-    live_pages = sum(min(p // ps, P - 1) + 1 for p in pos)
+    # the least time for this work: the K/V rows at the positions each
+    # query sees (q_pos back to its window), the live page-table entries,
+    # q, out and q_pos once over the memory rate, or the products' flops
+    # over the f32 rate (the soft cap's tanh not counted)
+    def seen(p):
+        return min(p, P * ps - 1) + 1 if window is None else min(
+            min(p, P * ps - 1) + 1, window)
+
+    rows = sum(seen(p) for p in pos)
+    live_pages = sum(min(p // ps, P - 1) - (p - seen(p) + 1) // ps + 1
+                     for p in pos)
     nbytes = (2 * rows * KV * hd * el + 2 * B * KV * G * hd * el
               + live_pages * 4 + B * 4)
     flops = 4 * rows * KV * G * hd
@@ -1684,20 +1847,24 @@ def paged_timing(torch, pk, *, B, KV, G, hd, ps, P, pos, dtype):
     splits, pps = pk.decode_splits(
         B, KV, P, torch.cuda.get_device_properties(0).multi_processor_count)
     shape = (f"B{B} KV{KV} G{G} hd{hd} ps{ps} P{P} {str(dtype)[6:]}, q_pos "
-             f"{min(pos)}-{max(pos)}, {splits} splits of {pps} pages")
+             f"{min(pos)}-{max(pos)}" + (f", window {window}" if window
+                                         else "")
+             + (f", softcap {softcap:g}" if softcap else "")
+             + f", {splits} splits of {pps} pages")
     say("timing", f"paged_decode at {shape}: kernel {kern:.4f} ms, bound "
         f"{bound:.4f} ms ({by}: {nbytes} bytes), gather {plain:.4f} ms, "
-        f"sdpa on gathered K/V {lib:.4f} ms")
+        f"{lib_name} on gathered K/V {lib:.4f} ms")
     del sets, lib_sets
     torch.cuda.empty_cache()
     return {"ms": kern, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-            "library_ms": lib, "shape": shape}
+            "library_ms": lib, "library": lib_name, "shape": shape}
 
 
 def phase_timing(torch, pk):
     """paged_decode at the llama decode shape with KV lengths up to 2047
-    (float32, the kernel line's numbers; and bfloat16), and at the llama
-    serve phase's shape (4 slots, 35-page tables, KV lengths 77-512)."""
+    (float32, the kernel line's numbers; and bfloat16), at the llama
+    serve phase's shape (4 slots, 35-page tables, KV lengths 77-512), and
+    at phase 16's decode shapes (ARCH_DECODE) in each arch's dtype."""
     res = paged_timing(torch, pk, B=8, KV=8, G=4, hd=64, ps=16, P=128,
                        pos=[2047, 1500, 1023, 700, 333, 64, 15, 0],
                        dtype=torch.float32)
@@ -1708,6 +1875,11 @@ def phase_timing(torch, pk):
     res["llama_serve"] = paged_timing(
         torch, pk, B=4, KV=8, G=4, hd=64, ps=16, P=35,
         pos=[76, 200, 350, 511], dtype=torch.float32)
+    res["archs"] = {
+        arch: paged_timing(torch, pk, B=4, KV=KV, G=G, hd=hd, ps=16, P=P,
+                           pos=pos, dtype=getattr(torch, ARCH_DTYPE[arch]),
+                           window=w, softcap=sc)
+        for arch, KV, G, hd, P, w, sc, pos in ARCH_DECODE}
     return res
 
 
@@ -1836,11 +2008,19 @@ def time_turns(torch, fn, args, flush, earlier=None) -> dict:
             for who in cold} | {"turns": ", ".join(medians)}
 
 
+#: (shape, G, S, E, dtype name): olmoe-1b-7b's decode (4 slots, one token
+#: each) and 512-token prefill in float32 (the kernel line's numbers),
+#: qwen3-moe-30b-a3b's in bfloat16 (its dtype in phase 16)
+MOE_TIMED = (("decode", 4, 1, 64, "float32"),
+             ("prefill", 1, 512, 64, "float32"),
+             ("qwen3 decode", 4, 1, 128, "bfloat16"),
+             ("qwen3 prefill", 1, 512, 128, "bfloat16"))
+
+
 def phase_moe_timing(torch, mk, earlier=None):
-    """Both MoE kernels at olmoe-1b-7b's decode (4 slots, one token each)
-    and 512-token prefill shapes, float32, with L2 flushed before each
-    call (:func:`time_cold`): combine on the contiguous slab and on the
-    strided slab the expert product hands it.  Each is timed by
+    """Both MoE kernels at MOE_TIMED's shapes (D 2048, K 8), with L2
+    flushed before each call (:func:`time_cold`): combine on the
+    contiguous slab and on the strided slab the expert product hands it.  Each is timed by
     :func:`time_turns` (in turns with the ``earlier`` kernels when given)
     and reported as median, min and p90 over its cold calls and its warm
     time, beside an empty kernel timed the same way
@@ -1866,12 +2046,13 @@ def phase_moe_timing(torch, mk, earlier=None):
         f"timed: {fmt_spread(floor)}")
     res = {"moe_dispatch": {"spread": {}}, "moe_combine": {"spread": {}},
            "floor": floor}
-    el, D = 4, 2048
-    for shape, G, S in (("decode", 4, 1), ("prefill", 1, 512)):
+    D, K = 2048, 8
+    for shape, G, S, E, dname in MOE_TIMED:
+        dt = getattr(torch, dname)
+        el = torch.finfo(dt).bits // 8
         x, src, sw, eid, pos, w, C = moe_inputs(
-            torch, nn_moe, mk, G=G, S=S, D=D, E=64, K=8, cf=1.25,
-            dtype=torch.float32, seed=11)
-        E, K = 64, 8
+            torch, nn_moe, mk, G=G, S=S, D=D, E=E, K=K, cf=1.25, dtype=dt,
+            seed=11)
         buf = mk.moe_dispatch_cuda(x, src, sw)
         strided = buf.transpose(0, 1).contiguous().transpose(0, 1)
         # dispatch: the slab written, each distinct source row it reads
@@ -1890,8 +2071,9 @@ def phase_moe_timing(torch, mk, earlier=None):
         # the library call's inputs: flat row ids into x / the slab
         d_idx = (torch.arange(G, device="cuda")[:, None, None] * S
                  + src.long().clamp(0, S - 1)).reshape(-1, 1)
-        d_lib = (x.reshape(-1, D), d_idx, sw.reshape(-1, 1))
-        c_lib = (buf.reshape(-1, D), flat.reshape(-1, K), w.reshape(-1, K))
+        d_lib = (x.reshape(-1, D), d_idx, sw.reshape(-1, 1).to(dt))
+        c_lib = (buf.reshape(-1, D), flat.reshape(-1, K),
+                 w.reshape(-1, K).to(dt))
         for name, fn, plain, args, lib_args, nbytes, ops in (
                 ("moe_dispatch", mk.moe_dispatch_cuda, mk.dispatch_slot,
                  (x, src, sw), d_lib, d_bytes, d_ops),
@@ -1899,8 +2081,8 @@ def phase_moe_timing(torch, mk, earlier=None):
                  (buf, eid, pos, w), c_lib, c_bytes, c_ops)):
             want = plain(*args)
             got = bag(*lib_args).reshape(want.shape)
-            err = (got - want).abs().max().item()
-            check(err <= MOE_TOL["float32"], f"{name} {shape}: embedding_bag "
+            err = (got.float() - want.float()).abs().max().item()
+            check(err <= MOE_TOL[dname], f"{name} {shape}: embedding_bag "
                   f"disagrees with the plain version by {err:.3e}")
             variants = [("", args)]
             if name == "moe_combine":
@@ -1912,8 +2094,8 @@ def phase_moe_timing(torch, mk, earlier=None):
             for how, a in variants:
                 tt = time_turns(torch, fn, a, flush, earlier)
                 res[name]["spread"][shape + how.replace(" ", "_")] = tt["this"]
-                say("timing", f"{name}{how} at olmoe {shape} G{G} S{S} E{E} "
-                    f"K{K} C{C} D{D} float32: kernel {fmt_spread(tt['this'])}"
+                say("timing", f"{name}{how} at {shape} G{G} S{S} E{E} "
+                    f"K{K} C{C} D{D} {dname}: kernel {fmt_spread(tt['this'])}"
                     f", warm {tt['this']['warm']:.4f} ms" + (
                         f"; previous kernels {fmt_spread(tt['previous'])}, "
                         f"warm {tt['previous']['warm']:.4f} ms"
@@ -1926,27 +2108,41 @@ def phase_moe_timing(torch, mk, earlier=None):
             res[name][shape] = dict(
                 ms=kern, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                 library_ms=lib_ms, bytes=nbytes)
-            say("timing", f"{name} at olmoe {shape}: kernel {kern:.4f} ms, "
+            say("timing", f"{name} at {shape} {dname}: kernel {kern:.4f} ms, "
                 f"bound {bound:.4f} ms, plain version {plain_ms:.4f} ms, "
                 f"embedding_bag {lib_ms:.4f} ms")
     return res
 
 
 def phase_flash_timing(torch, fk):
-    """The three flash entry points at llama3.2-1b's training shape (one
-    microbatch: 4 x 32 heads x 2048 x hd 64, causal), float32 and bfloat16,
-    beside their bounds and plain versions, and the backward as a whole
+    """:func:`flash_timing_at` llama3.2-1b's training shape (one
+    microbatch: 4 x 32 heads x 2048 x hd 64, causal; the kernel line's
+    numbers) and gemma2-2b's long prefill in phase 16 (1 x 8 heads x 4608
+    x hd 256, causal, its local layers' window of 4,096 and soft cap 50),
+    each in float32 and bfloat16."""
+    res = flash_timing_at(torch, fk, B=4, H=32, S=2048, hd=64)
+    res["gemma2_prefill"] = flash_timing_at(torch, fk, B=1, H=8, S=4608,
+                                            hd=256, window=4096, softcap=50.0)
+    return res
+
+
+def flash_timing_at(torch, fk, *, B, H, S, hd, window=None, softcap=None):
+    """The three flash entry points at one causal shape, float32 and
+    bfloat16, beside their bounds and plain versions, and the backward as
+    a whole
     (the dK/dV pass plus the dQ pass) beside its bound, the plain backward
     and one library call.  The library call is
-    ``F.scaled_dot_product_attention``: its forward for the forward, its
-    autograd backward for the whole backward; timed only, used nowhere in
-    the port.  No library call computes one pass alone, so each pass's
+    ``F.scaled_dot_product_attention`` (with the window as a boolean mask),
+    or eager ``flex_attention`` where a soft cap is on (SDPA takes none):
+    its forward for the forward, its autograd backward for the whole
+    backward; timed only, used nowhere in the port.  No library call computes one pass alone, so each pass's
     ``library_ms`` is null; its plain version is autograd of the plain
     version asked for that pass's outputs only (dK and dV, or dQ).  Each
-    input is 67 MB (float32), larger than the 50 MB L2.
+    input of the llama shape is 67 MB (float32), larger than the 50 MB L2.
 
-    Bounds, from this run's causal mask (S(S+1)/2 visible pairs per
-    head): each product (QKᵀ, PV, dO Vᵀ, dV, dK, dQ) is 2·hd flops a
+    Bounds, from this run's mask (S(S+1)/2 visible pairs per head when
+    causal, each row's keys capped at the window when one is on): each
+    product (QKᵀ, PV, dO Vᵀ, dV, dK, dQ) is 2·hd flops a
     visible pair; the forward does 2 of them (2·B·H·S²·hd), the dK/dV pass
     4 (S, dP, dV, dK), the dQ pass 3 (S, dP, dQ); the backward as a whole
     needs 5 (2.5 x the forward).  Rates: bfloat16 989 TFLOP/s (dense
@@ -1955,8 +2151,26 @@ def phase_flash_timing(torch, fk):
     the backward runs them), the lower time being the bound and the
     timing line giving both; 3.35 TB/s."""
     F = torch.nn.functional
-    B, H, S, hd = 4, 32, 2048, 64
-    BH, pairs = B * H, S * (S + 1) // 2
+    BH = B * H
+    pairs = sum(min(r + 1, window or S) for r in range(S))
+    mask = {"causal": True, "window": window, "softcap": softcap}
+    label = f"B{B} H{H} S{S} hd{hd} causal" + (
+        f" window {window}" if window else "") + (
+        f" softcap {softcap:g}" if softcap else "")
+    if softcap is None:
+        lib_name = "sdpa"
+        keep = None
+        if window is not None:
+            r = torch.arange(S, device="cuda")
+            keep = (r[:, None] >= r[None]) & (r[:, None] - r[None] < window)
+
+        def lib_call(q, k, v):
+            if keep is None:
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
+    else:
+        lib_name = "flex_attention (eager)"
+        lib_call = flex_attention_call(torch, True, window, softcap)
     res = {}
     for dname in ("float32", "bfloat16"):
         dt = getattr(torch, dname)
@@ -1965,8 +2179,8 @@ def phase_flash_timing(torch, fk):
         g.manual_seed(5)
         q, k, v, do = (torch.randn((B, H, S, hd), generator=g,
                                    device="cuda").to(dt) for _ in range(4))
-        o, lse = fk.flash_fwd_cuda(q, k, v, causal=True)
-        _, _, delta = fk.flash_bwd_dkdv_cuda(q, k, v, o, lse, do, causal=True)
+        o, lse = fk.flash_fwd_cuda(q, k, v, **mask)
+        _, _, delta = fk.flash_bwd_dkdv_cuda(q, k, v, o, lse, do, **mask)
         mat = BH * S * hd * el          # one (B, H, S, hd) tensor's bytes
         row = BH * S * 4                # lse or delta
         work = {                        # (flops, bytes) per entry point
@@ -1977,15 +2191,15 @@ def phase_flash_timing(torch, fk):
         }
         kern = {
             "flash_fwd": time_ms(torch, lambda: fk.flash_fwd_cuda(
-                q, k, v, causal=True), [()], reps=5, iters=3),
+                q, k, v, **mask), [()], reps=5, iters=3),
             "flash_bwd_dkdv": time_ms(torch, lambda: fk.flash_bwd_dkdv_cuda(
-                q, k, v, o, lse, do, causal=True), [()], reps=5, iters=3),
+                q, k, v, o, lse, do, **mask), [()], reps=5, iters=3),
             "flash_bwd_dq": time_ms(torch, lambda: fk.flash_bwd_dq_cuda(
-                q, k, v, do, lse, delta, causal=True), [()], reps=5, iters=3),
+                q, k, v, do, lse, delta, **mask), [()], reps=5, iters=3),
         }
         kern["backward_total"] = kern["flash_bwd_dkdv"] + kern["flash_bwd_dq"]
         qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        out = fk.flash_attention_ref(*qkv, causal=True)
+        out = fk.flash_attention_ref(*qkv, **mask)
 
         def plain_grads(wrt):
             return time_ms(torch, lambda: torch.autograd.grad(
@@ -1993,18 +2207,18 @@ def phase_flash_timing(torch, fk):
 
         plain = {
             "flash_fwd": time_ms(torch, lambda: fk.flash_attention_ref(
-                q, k, v, causal=True), [()], reps=3, iters=2),
+                q, k, v, **mask), [()], reps=3, iters=2),
             "flash_bwd_dkdv": plain_grads(qkv[1:]),
             "flash_bwd_dq": plain_grads(qkv[:1]),
             "backward_total": plain_grads(qkv),
         }
-        lib_out = F.scaled_dot_product_attention(*qkv, is_causal=True)
+        lib_out = lib_call(*qkv)
         err = (lib_out.float() - out.float()).abs().max().item()
-        check(err <= 10 * FLASH_TOL[dname], f"sdpa {dname} disagrees with "
-              f"the plain version by {err:.3e}")
+        check(err <= 10 * FLASH_TOL[dname], f"{lib_name} {dname} at {label} "
+              f"disagrees with the plain version by {err:.3e}")
         lib = {
-            "flash_fwd": time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True), [()], reps=5, iters=3),
+            "flash_fwd": time_ms(torch, lambda: lib_call(q, k, v), [()],
+                                 reps=5, iters=3),
             "flash_bwd_dkdv": None, "flash_bwd_dq": None,
             "backward_total": time_ms(torch, lambda: torch.autograd.grad(
                 lib_out, qkv, do, retain_graph=True), [()], reps=5, iters=3),
@@ -2019,15 +2233,16 @@ def phase_flash_timing(torch, fk):
                 "ms": kern[name], "plain_ms": plain[name],
                 "bound_ms": max(t_ops, t_bytes),
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "library_ms": lib[name], "flops": flops, "bytes": nbytes}
+                "library_ms": lib[name], "flops": flops, "bytes": nbytes,
+                "library": lib_name, "shape": f"{label} {dname}"}
             rate = (f"{peak / 1e12:.0f} TFLOP/s"
                     + (f"; {flops / F32_FLOPS * 1e3:.4f} ms at the CUDA "
                        "cores' 67" if dname == "float32" else ""))
-            sdpa = "none" if lib[name] is None else f"{lib[name]:.4f} ms"
-            say("timing", f"{name} at B{B} H{H} S{S} hd{hd} causal {dname}: "
-                f"kernel {kern[name]:.4f} ms, bound "
-                f"{max(t_ops, t_bytes):.4f} ms ({flops} flops at {rate}, "
-                f"{nbytes} bytes), plain {plain[name]:.4f} ms, sdpa {sdpa}")
+            lib_ms = "none" if lib[name] is None else f"{lib[name]:.4f} ms"
+            say("timing", f"{name} at {label} {dname}: kernel "
+                f"{kern[name]:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "
+                f"({flops} flops at {rate}, {nbytes} bytes), plain "
+                f"{plain[name]:.4f} ms, {lib_name} {lib_ms}")
         del q, k, v, do, o, lse, delta
         torch.cuda.empty_cache()
     return res
@@ -2674,6 +2889,300 @@ def phase_elastic_processes(torch):
     return outs
 
 
+# --------------------------------------------------------------------------
+# phase 16: chatglm3-6b, gemma2-2b, internlm2-20b and qwen3-moe-30b-a3b
+# served at full width; olmoe-1b-7b trained at full depth in bfloat16
+# --------------------------------------------------------------------------
+
+#: phase 16's serve runs, in ARCH_DTYPE, each model freed before the next
+ARCH_SERVED = ("chatglm3-6b", "gemma2-2b", "internlm2-20b",
+               "qwen3-moe-30b-a3b")
+#: gemma2-2b's extra request: a prompt past its local layers' window of
+#: 4,096, so the window cuts its prefill's and its decode's attention
+LONG_REQUEST = (4608, 32)
+#: olmoe-1b-7b's bfloat16 training run: steps, batch, sequence, and the
+#: sequences of the first batch the kernel path is checked on
+OLMOE_TRAIN = (3, 8, 2048, 2)
+
+
+#: bfloat16 logits after 48 layers, kernels vs plain versions: ulps of
+#: the largest |logit|.  The CPU parity tests hold 2 layers at 4; each
+#: layer's kernels and plain versions round differently (the gather
+#: rounds the attention weights to bfloat16 before P·V, the slot MoE
+#: rounds its products, the kernels round once from float32), and 48
+#: layers compound it: a first chip call of phase 16 measured 3 ulps
+#: (internlm2-20b) and 7 (qwen3-moe-30b-a3b)
+BF16_DEEP_ULPS = 16
+
+
+def bf16_hold(torch, got, want, vocab, what):
+    """bfloat16 logits of the kernel path against the plain path's:
+    within BF16_DEEP_ULPS ulps of the plain path's largest |logit|, and
+    the greedy token equal wherever the plain top-2 margin is wider than
+    twice that (elsewhere two tokens are tied within it).  Returns
+    (max|d|, the tolerance, the rate at which the greedy tokens
+    agree)."""
+    got, want = got.float()[..., :vocab], want.float()[..., :vocab]
+    tol = bf16_ulps(torch, want, BF16_DEEP_ULPS)
+    err = (got - want).abs().max().item()
+    check(err <= tol, f"{what}: max|dlogit| {err:.4e} > {BF16_DEEP_ULPS} "
+          f"bf16 ulps ({tol:.4e})")
+    top2 = want.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * tol
+    agree = got.argmax(-1) == want.argmax(-1)
+    check(bool(agree[decided].all()), f"{what}: a greedy token differs "
+          "where the plain top-2 margin exceeds twice the tolerance")
+    return err, tol, agree.float().mean().item()
+
+
+def arch_teacher(torch, counters, arch, params, dt):
+    """4 slots prefilled one at a time through the kernels (as
+    ``serve_continuous`` admits them) with prompts of 512, 300, 150 and 77
+    tokens (gemma2-2b: 4,608 in place of 512, past its window), then one
+    teacher-forced ``decode_step`` through the kernels and through the
+    plain versions (``attn_impl="ref"``, ``moe_impl="slot"``, the gather)
+    on that cache: float32 logits at atol 1e-3 (phase 5's), bfloat16 by
+    :func:`bf16_hold`.  Returns the decode state for the profile and the
+    result."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decoder as dec
+
+    cfg = get_config(arch)
+    layers = cfg.num_layers
+    cfg_p = dataclasses.replace(cfg, kv_impl="paged")
+    cfg_s = dataclasses.replace(cfg_p, attn_impl="ref", moe_impl="slot")
+    plens = [LONG_REQUEST[0] if arch == "gemma2-2b" else 512, 300, 150, 77]
+    cache = dec.init_cache(cfg_p, len(plens), max(plens) + 32, dtype=dt,
+                           device="cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab, (len(plens), max(plens)),
+                            generator=g, device="cuda", dtype=torch.int32)
+    toks = []
+    for b, n in enumerate(plens):
+        sub = dec.slot_cache(cache, b)
+        lg, sub = dec.prefill(params, cfg_p, prompts[b:b + 1, :n], sub,
+                              compute_dtype=dt)
+        cache = dec.merge_slot_cache(cache, sub, b)
+        toks.append(lg[0, n - 1, :cfg.vocab].argmax())
+        del lg
+    tok = torch.stack(toks).to(torch.int32)[:, None]
+    n0 = {k: fn.launches for k, fn in counters.items()}
+    la, _ = dec.decode_step(params, cfg_p, tok, cache, compute_dtype=dt,
+                            impl="auto")
+    n1 = {k: fn.launches for k, fn in counters.items()}
+    lb, _ = dec.decode_step(params, cfg_s, tok, cache, compute_dtype=dt,
+                            impl="gather")
+    torch.cuda.synchronize()
+    want = {"paged_decode": layers}
+    if cfg.has_moe:
+        want.update(moe_dispatch=layers, moe_combine=layers)
+    launched = {k: n1[k] - n0[k] for k in counters}
+    check(all(launched[k] == want.get(k, 0) for k in counters),
+          f"{arch} teacher-forced decode_step: launches {launched}, "
+          f"expected {want}")
+    check(all(fn.launches == n1[k] for k, fn in counters.items()),
+          f"{arch}: the plain decode_step launched a kernel")
+    check(bool(torch.isfinite(la.float()).all()), f"{arch}: non-finite "
+          "decode logits")
+    what = f"{arch} teacher-forced decode_step, kernels vs plain versions"
+    if dt == torch.float32:
+        err, tol = (la - lb).abs().max().item(), 1e-3
+        check(err <= tol, f"{what}: max|dlogit| {err:.3e} > 1e-3")
+        agree = (la[..., :cfg.vocab].argmax(-1)
+                 == lb[..., :cfg.vocab].argmax(-1)).float().mean().item()
+    else:
+        err, tol, agree = bf16_hold(torch, la, lb, cfg.vocab, what)
+    say("archs", f"{what} (prompts {plens}, {str(dt)[6:]}): max|dlogit| "
+        f"{err:.4e} (tolerance {tol:.4e}); greedy tokens agree at "
+        f"{agree:.3f}")
+    return (params, cfg_p, cache, tok), {"max_abs_dlogit": err, "tol": tol,
+                                         "greedy_agree": agree}
+
+
+def phase_archs(torch, counters):
+    """ARCH_SERVED at full width and depth, random weights from seed 0 in
+    ARCH_DTYPE, one model on the card at a time: ``serve_continuous`` on
+    phase 5's mix (gemma2-2b: plus LONG_REQUEST) through
+    :func:`counted_serve` (every request completed, the pool conserved,
+    ``paged_decode`` launches = layers x decode steps, ``flash_fwd`` =
+    layers x prefills, the MoE kernels layers x (decode steps + prefills)),
+    :func:`arch_teacher`, and a profiled decode step (host and device ms).
+    Prints tok/s, TTFT and peak memory of each."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import decoder as dec
+    from repro_torch.tree import tree_leaves
+
+    results = {}
+    for arch in ARCH_SERVED:
+        dname = ARCH_DTYPE[arch]
+        dt = getattr(torch, dname)
+        cfg = get_config(arch)
+        layers = cfg.num_layers
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = dec.init_model(cfg, seed=0, device="cuda", dtype=dt)
+        torch.cuda.synchronize()
+        n_par = sum(t.numel() for t in tree_leaves(params))
+        say("archs", f"{arch} full width: {layers} layers, d_model "
+            f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV "
+            f"heads (G {cfg.n_heads // cfg.n_kv_heads}), hd {cfg.head_dim}, "
+            f"vocab {cfg.vocab}" + (f", {cfg.moe_experts} experts top-"
+                                    f"{cfg.moe_top_k}" if cfg.has_moe else "")
+            + f"; {n_par} {dname} parameters from seed 0 in "
+            f"{time.perf_counter() - t0:.1f} s; "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+        requests = REQUESTS + ([LONG_REQUEST] if arch == "gemma2-2b" else [])
+        out, launches = counted_serve(torch, counters, arch, params,
+                                      requests=requests, compute_dtype=dt,
+                                      phase="archs")
+        steps, pre = out["decode_steps"], out["prefills"]
+        check(launches["paged_decode"] == layers * steps,
+              f"{arch}: paged_decode launches {launches['paged_decode']} != "
+              f"{layers} x {steps} steps")
+        check_prefill_flash(launches, layers, pre, arch, phase="archs")
+        moe = layers * (steps + pre) if cfg.has_moe else 0
+        check(launches["moe_dispatch"] == launches["moe_combine"] == moe,
+              f"{arch}: MoE launches {launches['moe_dispatch']} / "
+              f"{launches['moe_combine']} != {moe}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        state, teacher = arch_teacher(torch, counters, arch, params, dt)
+        prof = phase_profile(torch, state, arch, compute_dtype=dt)
+        ttft = [t for t in out["ttft_s"] if t is not None]
+        results[arch] = {
+            "dtype": dname, "params": n_par, "launches": launches,
+            "decode_steps": steps, "prefills": pre,
+            "decode_tok_per_s": out["decode_tok_per_s_in_chunks"],
+            "run_tok_per_s": out["decode_tok_per_s"],
+            "ttft_p50_ms": statistics.median(ttft) * 1e3,
+            "ttft_max_ms": max(ttft) * 1e3, "peak_gb": peak,
+            "step_host_ms": prof["host_ms"],
+            "step_device_ms": prof["device_ms"], "idle": prof["idle"],
+            "split_ms": prof["split_ms"], "teacher": teacher}
+        say("archs", f"{arch} ({dname}): decode {results[arch]['decode_tok_per_s']:.1f}"
+            f" tok/s in chunks, TTFT p50 {results[arch]['ttft_p50_ms']:.1f} "
+            f"ms, max {results[arch]['ttft_max_ms']:.1f} ms; serve peak "
+            f"memory {peak:.2f} GB; a decode step {prof['host_ms']:.2f} ms "
+            f"host, {prof['device_ms']:.3f} ms device (idle "
+            f"{prof['idle']:.3f})")
+        del params, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_olmoe_train(torch, counters):
+    """olmoe-1b-7b at all 16 layers on the card:
+    ``init_train_state(dtype=bfloat16)`` (bfloat16 parameters and AdamW
+    moments, as the reference keeps the moments in the parameters' dtype)
+    and ``make_train_step`` in bfloat16.  Before any update, the loss and
+    the global gradient norm through the kernels against the plain
+    versions on the same weights and the first OLMOE_TRAIN[3] sequences of
+    the first batch (which keeps the plain attention's (B, H, S, S) float32
+    scores small beside 55 GB of state and gradients): the loss within
+    2^-7 relative (one bfloat16 ulp) and the norm within 2^-5 relative (4
+    ulps, the CPU tests' gradient tolerance).  Then OLMOE_TRAIN[0] steps
+    of 8 x 2048 tokens in one microbatch (72.6 GB at the peak;
+    accumulating microbatches would hold a second 13.8 GB gradient tree).
+    Launches per step: the flash forward twice a layer (forward and remat
+    recompute), each backward pass once, each MoE kernel 3 times (forward,
+    recompute, the other's backward)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokenDataset
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.models import decoder as dec
+    from repro_torch.optim import clip_by_global_norm
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    steps, B, S, n_check = OLMOE_TRAIN
+    bf16 = torch.bfloat16
+    cfg = get_config("olmoe-1b-7b")
+    layers = cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt = init_train_state(cfg, seed=0, device="cuda", dtype=bf16)
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in tree_leaves(params))
+    say("archs", f"olmoe-1b-7b training state: {n_par} bfloat16 parameters "
+        f"and two bfloat16 moments in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    ds = SyntheticTokenDataset(cfg.vocab, B, S)
+    sub = {k: v[:n_check] for k, v in _batch_on_card(torch, ds, 0).items()}
+
+    def loss_and_norm(cfg_x):
+        leaves = [t.detach().requires_grad_(True)
+                  for t in tree_leaves(params)]
+        loss = dec.loss_fn(tree_unflatten(params, leaves), cfg_x, sub,
+                           compute_dtype=bf16)
+        grads = torch.autograd.grad(loss, leaves)
+        _, norm = clip_by_global_norm(tree_unflatten(params, list(grads)),
+                                      1.0)
+        return loss.item(), norm.item()
+
+    n0 = {k: fn.launches for k, fn in counters.items()}
+    loss_k, norm_k = loss_and_norm(cfg)
+    n1 = {k: fn.launches for k, fn in counters.items()}
+    loss_r, norm_r = loss_and_norm(
+        dataclasses.replace(cfg, attn_impl="ref", moe_impl="slot"))
+    check(all(fn.launches == n1[k] for k, fn in counters.items()),
+          "olmoe-1b-7b: the plain loss_fn launched a kernel")
+    check(n1["flash_bwd_dq"] - n0["flash_bwd_dq"] == layers
+          and n1["moe_combine"] - n0["moe_combine"] == 3 * layers,
+          f"olmoe-1b-7b: the kernel loss_fn launched "
+          f"{ {k: n1[k] - n0[k] for k in counters} }")
+    dloss, dnorm = abs(loss_k - loss_r), abs(norm_k - norm_r)
+    check(math.isfinite(loss_k) and math.isfinite(norm_k),
+          "olmoe-1b-7b: non-finite loss or grad norm")
+    check(dloss <= 2 ** -7 * abs(loss_r) and dnorm <= 2 ** -5 * norm_r,
+          f"olmoe-1b-7b bfloat16: loss {loss_k} vs plain {loss_r}, grad "
+          f"norm {norm_k} vs plain {norm_r}")
+    say("archs", f"olmoe-1b-7b bfloat16, 16 layers, {n_check} x {S} tokens, "
+        f"kernels vs plain versions: loss {loss_k:.6f} vs {loss_r:.6f} "
+        f"(|d| {dloss:.3e}, tolerance {2 ** -7 * abs(loss_r):.3e}), grad "
+        f"norm {norm_k:.6f} vs {norm_r:.6f} (|d| {dnorm:.3e}, tolerance "
+        f"{2 ** -5 * norm_r:.3e})")
+    torch.cuda.empty_cache()
+
+    step = make_train_step(cfg, compute_dtype=bf16, microbatch=None)
+    for fn in counters.values():
+        fn.launches = 0
+    losses, norms, secs = [], [], []
+    for i in range(steps):
+        batch = _batch_on_card(torch, ds, i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        secs.append(time.perf_counter() - t0)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    per_step = {"flash_fwd": 2 * layers, "flash_bwd_dkdv": layers,
+                "flash_bwd_dq": layers, "moe_dispatch": 3 * layers,
+                "moe_combine": 3 * layers}
+    check(all(launches[k] == steps * per_step.get(k, 0) for k in counters),
+          f"olmoe-1b-7b train: launches {launches}, expected {steps} x "
+          f"{per_step}")
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"olmoe-1b-7b train: losses {losses}, grad norms {norms}")
+    check({t.dtype for t in tree_leaves(params) + tree_leaves(opt.mu)
+           + tree_leaves(opt.nu)} == {bf16},
+          "olmoe-1b-7b train: a parameter or moment is not bfloat16")
+    say("archs", f"olmoe-1b-7b train, 16 layers, bfloat16 parameters and "
+        f"moments, {steps} steps of {B} x {S} tokens in one microbatch: "
+        f"losses {[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(x, 4) for x in norms]}; s/step "
+        f"{[round(x, 3) for x in secs]}; peak memory {peak:.2f} GB; "
+        f"launches {launches}")
+    del params, opt, m
+    torch.cuda.empty_cache()
+    return {"launches": launches, "losses": losses, "grad_norms": norms,
+            "s_per_step": secs, "peak_gb": peak, "dloss": dloss,
+            "dnorm": dnorm}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", metavar="NAME.cu", action="append",
@@ -2801,20 +3310,37 @@ def main(argv=None) -> int:
     phase_elastic_processes(torch)
     say("elastic", f"phase 15 took {time.perf_counter() - t0:.1f} s")
 
-    paths = (("llama3.2-1b serve", llama_launches),
+    # 16. the other archs at full width, olmoe-1b-7b trained at full depth
+    t0 = time.perf_counter()
+    archs = phase_archs(torch, counters)
+    arch_teacher = phase_teacher(torch, counters, ARCH_TEACHER_RUNS,
+                                 phase="archs")
+    olmoe_train = phase_olmoe_train(torch, counters)
+    say("archs", f"phase 16 took {time.perf_counter() - t0:.1f} s")
+
+    #: the main paths, each run with the counts set to 0 just before it
+    #: and read just after; ``launches`` sums them
+    main_paths = (("llama3.2-1b serve", llama_launches),
+                  ("olmoe-1b-7b serve", moe_launches),
+                  ("llama3.2-1b train", train_launches),
+                  *((f"{a} serve ({r['dtype']})", r["launches"])
+                    for a, r in archs.items()),
+                  ("olmoe-1b-7b train, 16 layers, bfloat16",
+                   olmoe_train["launches"]))
+    paths = (*main_paths,
              ("llama3.2-1b serve --replan", replan_launches),
-             ("olmoe-1b-7b serve", moe_launches),
-             ("llama3.2-1b train", train_launches),
              ("olmoe-1b-7b 2-layer train check",
               teacher["olmoe-1b-7b"]["launches"]),
+             *((f"{a} 2-layer train check", r["launches"])
+               for a, r in arch_teacher.items()),
              *cli_launches.items())
     by_path = {k: {p: n[k] for p, n in paths if n.get(k)} for k in counters}
+    on_main = {k: sum(n.get(k, 0) for _, n in main_paths) for k in counters}
     kernels = [{
         "name": "paged_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
         "replaces": "src/repro/kernels/paged_attention.py:277",
-        "launches": llama_launches["paged_decode"]
-        + moe_launches["paged_decode"],
+        "launches": on_main["paged_decode"],
         "launches_by_path": by_path["paged_decode"],
         "max_abs_err": worst["float32"],
         "max_abs_err_bf16": worst["bfloat16"], **timing,
@@ -2826,7 +3352,7 @@ def main(argv=None) -> int:
             "name": kname, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/moe.cu",
             "replaces": f"src/repro/kernels/moe.py:{line}",
-            "launches": moe_launches[kname],
+            "launches": on_main[kname],
             "launches_by_path": by_path[kname],
             "max_abs_err": moe_worst[kname]["float32"],
             "max_abs_err_bf16": moe_worst[kname]["bfloat16"],
@@ -2834,13 +3360,16 @@ def main(argv=None) -> int:
             **{k: t["decode"][k] for k in TIMED},
             "shape": "olmoe-1b-7b decode, G4 S1 E64 K8 C8 D2048",
             "prefill": {k: t["prefill"][k] for k in TIMED},
+            "qwen3_bfloat16": {what: {k: t[f"qwen3 {what}"][k]
+                                      for k in TIMED}
+                               for what in ("decode", "prefill")},
             # median / min / p90 of the cold calls and the warm time, the
             # empty-kernel floor, and the time per call in the olmoe
             # decode and prefill profiles
             "spread": t["spread"],
             "floor_ms": moe_timing["floor"]["median"],
-            "in_path_ms": {what: per_call.get(kname)
-                           for what, per_call in moe_in_path.items()},
+            "in_path_ms": {what: prof["per_call"].get(kname)
+                           for what, prof in moe_in_path.items()},
         })
     for kname in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
         t = flash_timing[kname]
@@ -2848,7 +3377,7 @@ def main(argv=None) -> int:
             "name": kname, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:85",
-            "launches": train_launches[kname],
+            "launches": on_main[kname],
             "launches_by_path": by_path[kname],
             "max_abs_err": flash_worst[kname]["float32"],
             "max_abs_err_bf16": flash_worst[kname]["bfloat16"],
@@ -2856,13 +3385,16 @@ def main(argv=None) -> int:
             "shape": "llama3.2-1b training microbatch, B4 H32 S2048 hd64, "
                      "causal, float32",
             "bfloat16": {k: t["bfloat16"][k] for k in TIMED},
+            "gemma2_prefill": flash_timing["gemma2_prefill"][kname],
         })
         if kname != "flash_fwd":
             total = flash_timing["backward_total"]
             kernels[-1]["backward_total"] = {
                 "parts": ["flash_bwd_dkdv", "flash_bwd_dq"],
                 **{k: total["float32"][k] for k in TIMED},
-                "bfloat16": {k: total["bfloat16"][k] for k in TIMED}}
+                "bfloat16": {k: total["bfloat16"][k] for k in TIMED},
+                "gemma2_prefill": flash_timing["gemma2_prefill"][
+                    "backward_total"]}
     t = bag_timing["ctr hot-cache lookup"]
     kernels.append({
         "name": "embedding_bag", "route": "cuda",

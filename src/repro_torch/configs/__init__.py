@@ -3,7 +3,8 @@
 Each ported module exports ``config()`` (the full-size config) and
 ``reduced()`` (a small variant of the same family for CPU tests), with
 the same numbers as the reference's ``repro/configs``.  Ported:
-``llama3.2-1b``, ``olmoe-1b-7b`` and ``qwen3-moe-30b-a3b``; every other
+every attention arch (``llama3.2-1b``, ``chatglm3-6b``, ``gemma2-2b``,
+``internlm2-20b``, ``olmoe-1b-7b``, ``qwen3-moe-30b-a3b``); every other
 reference arch id raises ``NotImplementedError`` naming the ROADMAP item
 that ports it.
 """
@@ -26,6 +27,9 @@ ARCH_IDS = (
 )
 
 _MODULES = {
+    "chatglm3-6b": "chatglm3_6b",
+    "gemma2-2b": "gemma2_2b",
+    "internlm2-20b": "internlm2_20b",
     "llama3.2-1b": "llama3_2_1b",
     "olmoe-1b-7b": "olmoe_1b_7b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
@@ -33,9 +37,6 @@ _MODULES = {
 
 #: where each not-yet-ported arch waits (ROADMAP.md, queue 1)
 _PENDING = {
-    "chatglm3-6b": "queue 1 item 1 (remaining attention + dense configs)",
-    "gemma2-2b": "queue 1 item 1 (remaining attention + dense configs)",
-    "internlm2-20b": "queue 1 item 1 (remaining attention + dense configs)",
     "jamba-v0.1-52b": "queue 1 item 10 (recurrent and encoder mixers)",
     "rwkv6-7b": "queue 1 item 10 (recurrent and encoder mixers)",
     "whisper-large-v3": "queue 1 item 10 (recurrent and encoder mixers)",

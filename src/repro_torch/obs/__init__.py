@@ -8,8 +8,10 @@ the serve path uses; stdlib only).
 * :func:`flush` — write ``trace.json`` + append a ``metrics.jsonl``
   snapshot to the configured run directory.
 
-``repro_torch.obs.bridge`` (imported on its own) turns the live metrics
-into the cost model's shapes for the re-planner.
+``repro_torch.obs.bridge`` turns the live metrics into the cost model's
+shapes for the re-planner; :func:`snapshot_resources` resolves it lazily,
+so importing this package (as the spawned PS shard worker does) loads
+neither ``repro_torch.core`` nor torch.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from repro_torch.obs.trace import BUFFER, instant, span
 
 __all__ = [
     "BUFFER", "REGISTRY", "Registry", "configure", "enabled", "flush",
-    "instant", "metrics", "run_dir", "span", "trace",
+    "instant", "metrics", "run_dir", "snapshot_resources", "span", "trace",
 ]
 
 _run_dir: str | None = None
@@ -65,3 +67,11 @@ def flush(extra: dict | None = None) -> dict | None:
 
     return {"trace": export.write_trace(_run_dir),
             "metrics": export.write_metrics(_run_dir, extra)}
+
+
+def snapshot_resources(base, **kw):
+    """Lazy re-export of :func:`repro_torch.obs.bridge.snapshot_resources`
+    (keeps ``repro_torch.core`` out of the shard worker's import path)."""
+    from repro_torch.obs.bridge import snapshot_resources as _snap
+
+    return _snap(base, **kw)

@@ -58,11 +58,12 @@ def test_full_width_numbers():
         (16, 2048, 32, 8, 64, 8192, 128256, True, 500000.0)
 
 
-PORTED = ("llama3.2-1b", "olmoe-1b-7b", "qwen3-moe-30b-a3b")
+PORTED = ("llama3.2-1b", "olmoe-1b-7b", "qwen3-moe-30b-a3b", "chatglm3-6b",
+          "gemma2-2b", "internlm2-20b")
 
 
 @pytest.mark.parametrize("reduced", [False, True])
-@pytest.mark.parametrize("arch", PORTED[1:])
+@pytest.mark.parametrize("arch", PORTED[1:3])
 def test_moe_config_equals_reference(arch, reduced):
     t = tget(arch, reduced=reduced)
     j = jget(arch, reduced=reduced)
@@ -79,9 +80,42 @@ def test_olmoe_full_width_numbers():
         (16, 2048, 16, 16, 128, 64, 8, 1024, 50304, 50432, False, True)
 
 
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("arch", PORTED[3:])
+def test_dense_config_equals_reference(arch, reduced):
+    t = tget(arch, reduced=reduced)
+    j = jget(arch, reduced=reduced)
+    assert dataclasses.asdict(t) == _reference_dict(j)
+    assert (t.num_layers, t.padded_vocab, t.has_moe, t.source) == \
+        (j.num_layers, j.padded_vocab, False, j.source)
+
+
+#: (layers, d_model, heads, KV heads, head dim, d_ff, vocab, tied,
+#: rope theta, rope fraction, windows, soft-caps (attention, final),
+#: embedding scale, post-norms) of the full-width configs
+DENSE_NUMBERS = {
+    "chatglm3-6b": (28, 4096, 32, 2, 128, 13696, 65024, False, 10000.0, 0.5,
+                    (None,), (None, None), False, False),
+    "gemma2-2b": (26, 2304, 8, 4, 256, 9216, 256000, True, 10000.0, 1.0,
+                  (4096, None), (50.0, 30.0), True, True),
+    "internlm2-20b": (48, 6144, 48, 8, 128, 16384, 92544, False, 1000000.0,
+                      1.0, (None,), (None, None), False, False),
+}
+
+
+@pytest.mark.parametrize("arch", sorted(DENSE_NUMBERS))
+def test_dense_full_width_numbers(arch):
+    c = tget(arch)
+    assert (c.num_layers, c.d_model, c.n_heads, c.n_kv_heads, c.head_dim,
+            c.d_ff, c.vocab, c.tie_embeddings, c.rope_theta,
+            c.pattern[0].rope_fraction, tuple(s.window for s in c.pattern),
+            (c.pattern[0].logit_softcap, c.final_softcap), c.embed_scale,
+            c.pattern[0].post_norm) == DENSE_NUMBERS[arch]
+
+
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a not in PORTED])
 def test_unported_arch_names_its_queue_item(arch):
-    with pytest.raises(NotImplementedError, match="queue 1 item"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
         tget(arch)
 
 

@@ -27,7 +27,8 @@ MODULES = ["repro_torch", "repro_torch.launch.serve",
            "repro_torch.core.schedulers", "repro_torch.core.schedulers.rl",
            "repro_torch.core.schedulers.policy", "repro_torch.core.replan",
            "repro_torch.obs.bridge", "repro_torch.ps.elastic",
-           "repro_torch.ps.faults", "repro_torch.ps.snapshot"]
+           "repro_torch.ps.faults", "repro_torch.ps.snapshot",
+           "repro_torch.models.profile", "repro_torch.configs"]
 
 
 @pytest.fixture(scope="module")
@@ -96,3 +97,43 @@ def test_scan_pattern_catches_the_forms():
     for ok in ("import repro_torch", "from repro_torch import obs",
                "# no jax here", "import numpy"):
         assert not _FORBIDDEN.search(ok), ok
+
+
+def test_obs_exports_snapshot_resources_lazily():
+    """``repro_torch.obs.snapshot_resources`` is exported, and importing
+    the package (the shard worker's path) loads neither the bridge nor
+    ``repro_torch.core`` nor torch: the bridge resolves at the call."""
+    code = ("import sys; import repro_torch.obs as o; "
+            "print('snapshot_resources' in o.__all__, "
+            "callable(o.snapshot_resources), sorted(k for k in sys.modules "
+            "if k.split('.')[0] in ('torch', 'jax', 'repro') or "
+            "k.startswith(('repro_torch.core', 'repro_torch.obs.bridge'))))")
+    proc = subprocess.run(
+        [sys.executable, "-c", code],
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        capture_output=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr.decode()
+    assert proc.stdout.decode().strip() == "True True []"
+
+
+def test_obs_snapshot_resources_matches_the_reference():
+    """The package-level call returns what the reference's does from a
+    cold registry: the base resource, zero embedding ODT, the same serve
+    and PS sections."""
+    import dataclasses
+
+    from repro import obs as jobs
+    from repro.core import resources as jres
+    from repro_torch import obs as tobs
+    from repro_torch.core import resources as tres
+
+    for i in range(len(tres.default_fleet())):
+        want = jobs.snapshot_resources(jres.default_fleet()[i],
+                                       registry=jobs.Registry())
+        got = tobs.snapshot_resources(tres.default_fleet()[i],
+                                      registry=tobs.Registry())
+        assert got.keys() == want.keys()
+        assert dataclasses.asdict(got["resource"]) == \
+            dataclasses.asdict(want["resource"])
+        assert (got["embedding_odt"], got["serve"], got["ps"]) == \
+            (want["embedding_odt"], want["serve"], want["ps"])

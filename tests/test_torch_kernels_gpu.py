@@ -87,6 +87,36 @@ def test_paged_decode_kernel_matches_gather(cuda, dtype, atol, B, KV, G, hd,
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
 
 
+#: the decode shapes of the full-width archs served on the card (4 slots,
+#: page size 16): B, KV, G, hd, P, window, softcap, q_pos, dtype
+ARCH_DECODE_CASES = [
+    (4, 2, 16, 128, 35, None, None, [76, 200, 350, 551], torch.float32),
+    (4, 4, 2, 256, 291, 4096, 50.0, [4639, 551, 300, 76], torch.float32),
+    (4, 8, 6, 128, 35, None, None, [76, 200, 350, 551], torch.bfloat16),
+    (4, 4, 8, 128, 35, None, None, [76, 200, 350, 551], torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("B,KV,G,hd,P,window,sc,q_pos,dtype",
+                         ARCH_DECODE_CASES,
+                         ids=["chatglm3", "gemma2", "internlm2", "qwen3-moe"])
+def test_paged_decode_at_the_served_archs_decode_shapes(cuda, B, KV, G, hd,
+                                                        P, window, sc, q_pos,
+                                                        dtype):
+    """chatglm3-6b (G 16) and gemma2-2b (G 2, hd 256, a sequence past its
+    window of 4,096, soft cap 50) in float32, internlm2-20b (G 6) and
+    qwen3-moe-30b-a3b (G 8) in bfloat16: against the gather (float32
+    atol 2e-5, bfloat16 2e-2) and bit-equal over two calls."""
+    args = _split_inputs(B, KV, G, hd, 16, P, q_pos, dtype, cuda)
+    got = pk.paged_decode_cuda(*args, window=window, softcap=sc)
+    again = pk.paged_decode_cuda(*args, window=window, softcap=sc)
+    want = pk.paged_decode_gather(*args, window=window, softcap=sc)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=2e-5 if dtype == torch.float32 else 2e-2)
+
+
 def test_kernel_smem_fits_every_supported_shape(cuda):
     # llama (G4 hd64), internlm2 (G6 hd128), chatglm3 (G16 hd128), gemma2
     # (G2/G4 hd256) and G16 hd256 at page size 16: each block's shared
@@ -187,6 +217,8 @@ MOE_CASES = [
     (2, 24, 18, 4, 2, 1.25),          # D not a multiple of the vector width
     (4, 1, 2048, 64, 8, 1.25),        # OLMoE decode: C 8
     (1, 512, 2048, 64, 8, 1.25),      # OLMoE 512-token prefill: C 80
+    (4, 1, 2048, 128, 8, 1.25),       # qwen3-moe decode: C 8
+    (1, 512, 2048, 128, 8, 1.25),     # qwen3-moe 512-token prefill: C 40
 ]
 MOE_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 
@@ -530,6 +562,49 @@ def test_moe_functions_gradients_match_slot_autograd(cuda, G, S, D, E, K,
         torch.testing.assert_close(a, b, atol=atol, rtol=0, msg=name)
 
 
+def _bf16_ulps(t, n=4):
+    """``n`` bfloat16 ulps at the largest |value| of ``t``."""
+    top = t.float().abs().max().item()
+    return n * 2.0 ** (np.floor(np.log2(top)) - 7)
+
+
+@pytest.mark.parametrize("G,S,E", [(1, 512, 64), (2, 2048, 64),
+                                   (1, 512, 128)],
+                         ids=["olmoe prefill", "olmoe train", "qwen3 prefill"])
+def test_moe_functions_bf16_gradients_match_slot_autograd(cuda, G, S, E):
+    """bfloat16 dx / dbuf / dw through the MoE Functions against autograd
+    of the slot versions, each within 4 bfloat16 ulps of its largest
+    |value|: the kernels form products in float32 and round once, the
+    slot versions multiply and accumulate in bfloat16."""
+    D, K = 2048, 8
+    x, eid, pos, keep, safe, w, C = _moe_routing(G, S, D, E, K, 1.25, cuda)
+    x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    wtok = keep.to(torch.float32)
+    r = np.random.default_rng(4)
+    g_buf = torch.from_numpy(r.standard_normal((G, E, C, D), np.float32)).to(
+        cuda, torch.bfloat16)
+    g_y = torch.from_numpy(r.standard_normal((G, S, D), np.float32)).to(
+        cuda, torch.bfloat16)
+
+    def run(impl):
+        xi = x.clone().requires_grad_(True)
+        buf = ops.moe_dispatch(xi, eid, pos, wtok, num_experts=E, capacity=C,
+                               top_k=K, impl=impl)
+        (dx,) = torch.autograd.grad(buf, (xi,), g_buf)
+        b = buf.detach().clone().requires_grad_(True)
+        wi = w.clone().requires_grad_(True)
+        y = ops.moe_combine(b, eid.reshape(G, S, K), safe, wi, impl=impl)
+        dbuf, dw = torch.autograd.grad(y, (b, wi), g_y)
+        return dx, dbuf, torch.where(keep.reshape(G, S, K), dw, 0.0)
+
+    got, want = run("cuda"), run("slot")
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dx", "dbuf", "dw"), got, want):
+        assert a.dtype == torch.bfloat16, name
+        torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                   atol=_bf16_ulps(b), msg=name)
+
+
 # --------------------------------------------------------------------------
 # flash attention
 # --------------------------------------------------------------------------
@@ -557,6 +632,8 @@ FLASH_CASES = [
     (1, 2, 200, 64, 128, True, 16, 30.0),          # rows 79.. see no key
     (2, 8, 128, 128, 32, True, None, None),        # reduced llama3.2-1b
     (1, 2, 200, 200, 32, True, 16, 30.0),          # hd 32, ragged, all masks
+    (1, 16, 2048, 2048, 128, True, None, None),    # olmoe / chatglm3 training
+    (1, 8, 4608, 4608, 256, True, 4096, 50.0),     # gemma2 past its window
 ]
 FLASH_FWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 FLASH_BWD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (5e-2, 1.6e-2)}
