@@ -14,13 +14,15 @@ result lines:
 3. kernels — each kernel against its plain PyTorch version on the card: paged
              decode at the test shapes, the llama3.2-1b and olmoe-1b-7b decode
              shapes, phase 16's decode shapes (G 16, 2 with gemma2-2b's
-             window and soft cap at hd 256, 6 and 8) and sequences split
+             window and soft cap at hd 256, 6 and 8), phase 17's (G 4 at hd
+             128, whisper-large-v3's KV 20 at G 1) and sequences split
              over KV pages (across split boundaries,
              ending in the first split, a window starting mid-split, a table
              width that does not divide into the splits), float32 (atol 2e-5)
              and bfloat16 (atol 2e-2), each case bit-equal over two calls; MoE
-             dispatch and combine at the reference test sweep, olmoe-1b-7b's
-             and qwen3-moe-30b-a3b's decode and prefill shapes and with
+             dispatch and combine at the reference test sweep, olmoe-1b-7b's,
+             qwen3-moe-30b-a3b's and jamba-v0.1-52b's (E 16, top-2, D 4096)
+             decode and prefill shapes and with
              out-of-range indices, float32
              (atol 1e-5) and bfloat16 (atol 5e-2), and bit-equal to the plain
              versions with the kernels' rounding (dispatch formed in float32
@@ -31,8 +33,11 @@ result lines:
              (within 4 bfloat16 ulps of each gradient's largest value), at
              olmoe's prefill and training and qwen3-moe's prefill shapes;
              flash attention forward at the reference sweep, partial tiles,
-             head dim 32, olmoe's training heads at hd 128 and gemma2-2b's
-             4,608-token prefill with its window and soft cap (float32 atol
+             head dim 32, olmoe's training heads at hd 128, gemma2-2b's
+             4,608-token prefill with its window and soft cap, whisper-large-
+             v3's encoder (non-causal, 4 x 20 heads x 1,500 frames) and the
+             cross-attention of whisper-large-v3 and llama-3.2-vision-11b
+             (512 queries over 1,500 / 1,601 keys) (float32 atol
              2e-5, bfloat16 2e-2) and its dq / dk / dv against autograd of
              the plain version (float32 atol 1e-4 rtol 1e-4 and max|err|
              2e-5, bfloat16 atol 5e-2 rtol 1.6e-2), bfloat16 also within 1
@@ -104,7 +109,11 @@ result lines:
              forward and backward at gemma2-2b's prefill (hd 256, window
              4,096, soft cap 50; the library call eager ``flex_attention``,
              as SDPA takes no soft cap), MoE dispatch and combine at
-             qwen3-moe-30b-a3b's decode and prefill in bfloat16;
+             qwen3-moe-30b-a3b's decode and prefill in bfloat16; phase 17's
+             shapes: paged decode at the three attention archs' decode
+             shapes, the flash forward and backward at the whisper encoder
+             and the two cross-attention shapes (non-causal; SDPA), MoE at
+             jamba-v0.1-52b's decode and prefill in bfloat16;
 13. sched  — the paper's Table-3 cases (MATCHNET, CTRDNN, 2EMB and NCE
              on the CPU + V100 fleet, MATCHNET on 32 resource types) in one
              ``RLScheduler().schedule_many`` call on the card (150 rounds x
@@ -155,7 +164,24 @@ result lines:
              and AdamW moments): the loss and gradient norm through the
              kernels against the plain versions before any update, then 3
              steps of 8 x 2048 tokens with the launches counted, s/step and
-             peak memory.
+             peak memory;
+17. mixers — rwkv6-7b, llama-3.2-vision-11b and whisper-large-v3
+             (float32) at full width and depth and jamba-v0.1-52b
+             (bfloat16) at full width and 16 of its 32 layers (its full
+             depth does not fit the card), random weights from seed 0, one
+             model on the card at a time: ``serve_continuous`` on phase
+             5's mix with the launches counted by layer kind (paged decode
+             per self-attention layer and decode step, the flash forward
+             per self- and cross-attention layer and prefill, the MoE
+             kernels per MoE layer), a teacher-forced ``decode_step``
+             through the kernels against the plain versions and against
+             the prefill of the same tokens, 16 greedy steps on both
+             paths, a profiled decode step, the recurrent archs' 512-token
+             prefill per layer and the one-token cross decode; a 2-layer
+             full-width ``loss_fn`` with gradients of each (whisper-large-v3
+             with 2 encoder layers over 1,500 frames, llama-3.2-vision-11b
+             over 1,601 patches, jamba-v0.1-52b in bfloat16) through the
+             kernels against the plain versions, rwkv6-7b against the CPU.
 
 The scheduler and the elastic fleet have no TPU kernel in the reference
 (``jnp`` under ``jit``; no hot cache on the elastic path), so phases 13-15
@@ -245,14 +271,22 @@ ARCH_DECODE = (
     ("gemma2-2b", 4, 2, 256, 291, 4096, 50.0, [4639, 551, 300, 76]),
     ("internlm2-20b", 8, 6, 128, 35, None, None, [76, 200, 350, 551]),
     ("qwen3-moe-30b-a3b", 4, 8, 128, 35, None, None, [76, 200, 350, 551]),
+    ("jamba-v0.1-52b", 8, 4, 128, 35, None, None, [76, 200, 350, 551]),
+    ("llama-3.2-vision-11b", 8, 4, 128, 35, None, None, [76, 200, 350, 551]),
+    ("whisper-large-v3", 20, 1, 64, 35, None, None, [76, 200, 350, 551]),
 )
 
 
-#: phase 16's dtypes: float32 where the weights fit the card beside the
-#: run (chatglm3-6b 25 GB, gemma2-2b 10.5 GB), bfloat16 where they do not
-#: (internlm2-20b 80 GB and qwen3-moe-30b-a3b 122 GB in float32)
+#: phases 16's and 17's dtypes: float32 where the weights fit the card
+#: beside the run (chatglm3-6b 25 GB, gemma2-2b 10.5 GB, rwkv6-7b 30.2 GB,
+#: llama-3.2-vision-11b 39.1 GB, whisper-large-v3 8.0 GB), bfloat16 where
+#: they do not (internlm2-20b 80 GB and qwen3-moe-30b-a3b 122 GB in
+#: float32; jamba-v0.1-52b 103 GB even in bfloat16, served at 16 layers)
 ARCH_DTYPE = {"chatglm3-6b": "float32", "gemma2-2b": "float32",
-              "internlm2-20b": "bfloat16", "qwen3-moe-30b-a3b": "bfloat16"}
+              "internlm2-20b": "bfloat16", "qwen3-moe-30b-a3b": "bfloat16",
+              "rwkv6-7b": "float32", "jamba-v0.1-52b": "bfloat16",
+              "llama-3.2-vision-11b": "float32",
+              "whisper-large-v3": "float32"}
 
 
 #: (label, B, KV, G, hd, ps, P, window, softcap, q_pos, scratch rows)
@@ -278,8 +312,9 @@ def kernel_cases():
                   50.0, [127, 70], ()))
     cases.append(("olmoe B4 KV16 G1 hd128", 4, 16, 1, 128, 16, 35, None,
                   None, [543, 300, 77, 0], (3,)))
-    # the decode steps of phase 16's serve runs: 4 slots, 35-page tables
-    # (gemma2: 291 pages, one sequence past its window of 4,096)
+    # the decode steps of phases 16's and 17's serve runs: 4 slots,
+    # 35-page tables (gemma2: 291 pages, one sequence past its window of
+    # 4,096; whisper: G 1)
     for label, KV, G, hd, P, w, sc, pos in ARCH_DECODE:
         cases.append((f"{label} serve B4 KV{KV} G{G} hd{hd}", 4, KV, G, hd,
                       16, P, w, sc, pos, ()))
@@ -372,8 +407,8 @@ def moe_inputs(torch, nn_moe, mk, *, G, S, D, E, K, cf, dtype, seed):
 
 
 #: (label, G, S, D, E, K, cf): the reference test sweep
-#: (tests/test_kernels.py) and olmoe-1b-7b's and qwen3-moe-30b-a3b's
-#: decode and prefill shapes
+#: (tests/test_kernels.py) and olmoe-1b-7b's, qwen3-moe-30b-a3b's and
+#: jamba-v0.1-52b's decode and prefill shapes
 MOE_CASES = [
     ("test G2 S24 D16 E4 K2 cf1.25", 2, 24, 16, 4, 2, 1.25),
     ("test G1 S64 D32 E8 K2 cf1.0", 1, 64, 32, 8, 2, 1.0),
@@ -383,6 +418,8 @@ MOE_CASES = [
     ("olmoe prefill G1 S512 D2048 E64 K8 C80", 1, 512, 2048, 64, 8, 1.25),
     ("qwen3 decode G4 S1 D2048 E128 K8 C8", 4, 1, 2048, 128, 8, 1.25),
     ("qwen3 prefill G1 S512 D2048 E128 K8 C40", 1, 512, 2048, 128, 8, 1.25),
+    ("jamba decode G4 S1 D4096 E16 K2 C8", 4, 1, 4096, 16, 2, 1.25),
+    ("jamba prefill G1 S512 D4096 E16 K2 C80", 1, 512, 4096, 16, 2, 1.25),
 ]
 
 
@@ -582,8 +619,10 @@ def phase_moe_backward(torch, mk):
 #: (tests/test_kernels.py: shapes, windows 32/100/128, softcap 50, non
 #: causal, cross lengths), partial tiles, windows that leave rows with no
 #: key, the shapes train() feeds the kernels (llama3.2-1b's microbatch
-#: of 4, olmoe-1b-7b's heads) and phase 16's (a sequence of olmoe-1b-7b's
-#: bfloat16 training, gemma2-2b's long prefill past its window)
+#: of 4, olmoe-1b-7b's heads), phase 16's (a sequence of olmoe-1b-7b's
+#: bfloat16 training, gemma2-2b's long prefill past its window) and phase
+#: 17's (whisper-large-v3's encoder over 1,500 frames, its and
+#: llama-3.2-vision-11b's cross-attention over 1,500 / 1,601 keys)
 FLASH_CASES = [
     ("test B1 H1 S128 hd64", 1, 1, 128, 128, 64, True, None, None),
     ("test B2 H2 S256 hd64", 2, 2, 256, 256, 64, True, None, None),
@@ -613,6 +652,12 @@ FLASH_CASES = [
      True, None, None),
     ("gemma2 prefill B1 H8 S4608 hd256 window 4096 softcap 50", 1, 8, 4608,
      4608, 256, True, 4096, 50.0),
+    ("whisper encoder B4 H20 S1500 hd64 non-causal", 4, 20, 1500, 1500, 64,
+     False, None, None),
+    ("whisper cross B4 H20 Sq512 Sk1500 hd64", 4, 20, 512, 1500, 64, False,
+     None, None),
+    ("vision cross B4 H32 Sq512 Sk1601 hd128", 4, 32, 512, 1601, 128, False,
+     None, None),
 ]
 
 #: keys a forward block takes per step (``Fwd<T, HD>::COLS`` in
@@ -1069,20 +1114,22 @@ def counted_serve(torch, counters, arch, params, *, requests=REQUESTS,
                   compute_dtype=None, phase="serve"):
     """One ``serve_continuous`` of ``requests`` at full width with every
     launch count set to 0 just before it and read just after; checks the
-    outcomes and prints the rates."""
+    outcomes and prints the rates.  ``arch``: an arch id or an
+    ``ArchConfig`` (cut in depth)."""
     from repro_torch.launch.serve import serve_continuous
 
     kw = dict(reduced=False, device="cuda", requests=requests, slots=4,
               params=params, compute_dtype=compute_dtype or torch.float32)
+    cfg, arch = arch, (arch if isinstance(arch, str) else arch.name)
     # the same mix once first: CUDA start-up and the first use of every
     # matmul shape stay out of the measured run
     t0 = time.perf_counter()
-    serve_continuous(arch, **kw)
+    serve_continuous(cfg, **kw)
     say(phase, f"{arch}: warm-up run of the same mix "
         f"{time.perf_counter() - t0:.2f} s")
     for fn in counters.values():
         fn.launches = 0
-    out = serve_continuous(arch, **kw)
+    out = serve_continuous(cfg, **kw)
     launches = {name: fn.launches for name, fn in counters.items()}
     check(out["outcomes"] == ["completed"] * len(requests),
           f"{arch} outcomes {out['outcomes']}")
@@ -2008,17 +2055,20 @@ def time_turns(torch, fn, args, flush, earlier=None) -> dict:
             for who in cold} | {"turns": ", ".join(medians)}
 
 
-#: (shape, G, S, E, dtype name): olmoe-1b-7b's decode (4 slots, one token
-#: each) and 512-token prefill in float32 (the kernel line's numbers),
-#: qwen3-moe-30b-a3b's in bfloat16 (its dtype in phase 16)
-MOE_TIMED = (("decode", 4, 1, 64, "float32"),
-             ("prefill", 1, 512, 64, "float32"),
-             ("qwen3 decode", 4, 1, 128, "bfloat16"),
-             ("qwen3 prefill", 1, 512, 128, "bfloat16"))
+#: (shape, G, S, D, E, K, dtype name): olmoe-1b-7b's decode (4 slots, one
+#: token each) and 512-token prefill in float32 (the kernel line's
+#: numbers), qwen3-moe-30b-a3b's and jamba-v0.1-52b's in bfloat16 (their
+#: dtype in phases 16 and 17)
+MOE_TIMED = (("decode", 4, 1, 2048, 64, 8, "float32"),
+             ("prefill", 1, 512, 2048, 64, 8, "float32"),
+             ("qwen3 decode", 4, 1, 2048, 128, 8, "bfloat16"),
+             ("qwen3 prefill", 1, 512, 2048, 128, 8, "bfloat16"),
+             ("jamba decode", 4, 1, 4096, 16, 2, "bfloat16"),
+             ("jamba prefill", 1, 512, 4096, 16, 2, "bfloat16"))
 
 
 def phase_moe_timing(torch, mk, earlier=None):
-    """Both MoE kernels at MOE_TIMED's shapes (D 2048, K 8), with L2
+    """Both MoE kernels at MOE_TIMED's shapes, with L2
     flushed before each call (:func:`time_cold`): combine on the
     contiguous slab and on the strided slab the expert product hands it.  Each is timed by
     :func:`time_turns` (in turns with the ``earlier`` kernels when given)
@@ -2046,8 +2096,7 @@ def phase_moe_timing(torch, mk, earlier=None):
         f"timed: {fmt_spread(floor)}")
     res = {"moe_dispatch": {"spread": {}}, "moe_combine": {"spread": {}},
            "floor": floor}
-    D, K = 2048, 8
-    for shape, G, S, E, dname in MOE_TIMED:
+    for shape, G, S, D, E, K, dname in MOE_TIMED:
         dt = getattr(torch, dname)
         el = torch.finfo(dt).bits // 8
         x, src, sw, eid, pos, w, C = moe_inputs(
@@ -2114,20 +2163,35 @@ def phase_moe_timing(torch, mk, earlier=None):
     return res
 
 
+#: phase 17's flash shapes (key in the kernel line, B, H, Sq, Sk, hd):
+#: whisper-large-v3's encoder self-attention over 1,500 frames, its
+#: decoder's and llama-3.2-vision-11b's cross-attention of a 512-token
+#: prefill (4 sequences) over 1,500 frames / 1,601 patches; non-causal
+FLASH_MIXER_TIMED = (("whisper_encoder", 4, 20, 1500, 1500, 64),
+                     ("whisper_cross", 4, 20, 512, 1500, 64),
+                     ("vision_cross", 4, 32, 512, 1601, 128))
+
+
 def phase_flash_timing(torch, fk):
     """:func:`flash_timing_at` llama3.2-1b's training shape (one
     microbatch: 4 x 32 heads x 2048 x hd 64, causal; the kernel line's
-    numbers) and gemma2-2b's long prefill in phase 16 (1 x 8 heads x 4608
-    x hd 256, causal, its local layers' window of 4,096 and soft cap 50),
-    each in float32 and bfloat16."""
+    numbers), gemma2-2b's long prefill in phase 16 (1 x 8 heads x 4608
+    x hd 256, causal, its local layers' window of 4,096 and soft cap 50)
+    and phase 17's non-causal shapes (FLASH_MIXER_TIMED), each in float32
+    and bfloat16."""
     res = flash_timing_at(torch, fk, B=4, H=32, S=2048, hd=64)
     res["gemma2_prefill"] = flash_timing_at(torch, fk, B=1, H=8, S=4608,
                                             hd=256, window=4096, softcap=50.0)
+    for key, B, H, Sq, Sk, hd in FLASH_MIXER_TIMED:
+        res[key] = flash_timing_at(torch, fk, B=B, H=H, S=Sq, Sk=Sk, hd=hd,
+                                   causal=False)
     return res
 
 
-def flash_timing_at(torch, fk, *, B, H, S, hd, window=None, softcap=None):
-    """The three flash entry points at one causal shape, float32 and
+def flash_timing_at(torch, fk, *, B, H, S, hd, Sk=None, causal=True,
+                    window=None, softcap=None):
+    """The three flash entry points at one shape (S queries over ``Sk``
+    keys, default S; causal or not), float32 and
     bfloat16, beside their bounds and plain versions, and the backward as
     a whole
     (the dK/dV pass plus the dQ pass) beside its bound, the plain backward
@@ -2141,7 +2205,8 @@ def flash_timing_at(torch, fk, *, B, H, S, hd, window=None, softcap=None):
     input of the llama shape is 67 MB (float32), larger than the 50 MB L2.
 
     Bounds, from this run's mask (S(S+1)/2 visible pairs per head when
-    causal, each row's keys capped at the window when one is on): each
+    causal, each row's keys capped at the window when one is on; S·Sk
+    when not): each
     product (QKᵀ, PV, dO Vᵀ, dV, dK, dQ) is 2·hd flops a
     visible pair; the forward does 2 of them (2·B·H·S²·hd), the dK/dV pass
     4 (S, dP, dV, dK), the dQ pass 3 (S, dP, dQ); the backward as a whole
@@ -2152,9 +2217,16 @@ def flash_timing_at(torch, fk, *, B, H, S, hd, window=None, softcap=None):
     timing line giving both; 3.35 TB/s."""
     F = torch.nn.functional
     BH = B * H
-    pairs = sum(min(r + 1, window or S) for r in range(S))
-    mask = {"causal": True, "window": window, "softcap": softcap}
-    label = f"B{B} H{H} S{S} hd{hd} causal" + (
+    Sk = Sk or S
+    if causal:
+        pairs = sum(min(r + 1, window or S, Sk) for r in range(S))
+    else:
+        check(window is None, "flash_timing_at: a window is timed causal")
+        pairs = S * Sk
+    mask = {"causal": causal, "window": window, "softcap": softcap}
+    label = (f"B{B} H{H} S{S} hd{hd} causal" if causal and Sk == S else
+             f"B{B} H{H} Sq{S} Sk{Sk} hd{hd} " + (
+                 "causal" if causal else "non-causal")) + (
         f" window {window}" if window else "") + (
         f" softcap {softcap:g}" if softcap else "")
     if softcap is None:
@@ -2166,28 +2238,37 @@ def flash_timing_at(torch, fk, *, B, H, S, hd, window=None, softcap=None):
 
         def lib_call(q, k, v):
             if keep is None:
-                return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+                return F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=causal)
             return F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
     else:
         lib_name = "flex_attention (eager)"
-        lib_call = flex_attention_call(torch, True, window, softcap)
+        lib_call = flex_attention_call(torch, causal, window, softcap)
     res = {}
     for dname in ("float32", "bfloat16"):
         dt = getattr(torch, dname)
         el = torch.finfo(dt).bits // 8
         g = torch.Generator(device="cuda")
         g.manual_seed(5)
-        q, k, v, do = (torch.randn((B, H, S, hd), generator=g,
-                                   device="cuda").to(dt) for _ in range(4))
+        q, k, v, do = (torch.randn((B, H, n, hd), generator=g,
+                                   device="cuda").to(dt)
+                       for n in (S, Sk, Sk, S))
         o, lse = fk.flash_fwd_cuda(q, k, v, **mask)
         _, _, delta = fk.flash_bwd_dkdv_cuda(q, k, v, o, lse, do, **mask)
-        mat = BH * S * hd * el          # one (B, H, S, hd) tensor's bytes
+        mq = BH * S * hd * el           # one (B, H, S, hd) tensor's bytes
+        mk = BH * Sk * hd * el          # one (B, H, Sk, hd) tensor's bytes
         row = BH * S * 4                # lse or delta
         work = {                        # (flops, bytes) per entry point
-            "flash_fwd": (4 * BH * pairs * hd, 4 * mat + row),
-            "flash_bwd_dkdv": (8 * BH * pairs * hd, 7 * mat + 2 * row),
-            "flash_bwd_dq": (6 * BH * pairs * hd, 5 * mat + 2 * row),
-            "backward_total": (10 * BH * pairs * hd, 8 * mat + row),
+            # q, k, v read; o, lse written
+            "flash_fwd": (4 * BH * pairs * hd, 2 * mq + 2 * mk + row),
+            # q, o, dO, k, v, lse read; dk, dv, delta written
+            "flash_bwd_dkdv": (8 * BH * pairs * hd,
+                               3 * mq + 4 * mk + 2 * row),
+            # q, dO, k, v, lse, delta read; dq written
+            "flash_bwd_dq": (6 * BH * pairs * hd, 3 * mq + 2 * mk + 2 * row),
+            # q, o, dO, k, v, lse read; dq, dk, dv written
+            "backward_total": (10 * BH * pairs * hd,
+                               4 * mq + 4 * mk + row),
         }
         kern = {
             "flash_fwd": time_ms(torch, lambda: fk.flash_fwd_cuda(
@@ -3183,6 +3264,410 @@ def phase_olmoe_train(torch, counters):
             "dnorm": dnorm}
 
 
+# --------------------------------------------------------------------------
+# phase 17: rwkv6-7b, llama-3.2-vision-11b, whisper-large-v3 and
+# jamba-v0.1-52b served at full width; their 2-layer training checks
+# --------------------------------------------------------------------------
+
+#: phase 17's serve runs in ARCH_DTYPE, each model freed before the next:
+#: (arch, repeats or None for full depth).  jamba-v0.1-52b keeps 2 of its
+#: 4 repeats of the 8-layer period (16 of 32 layers: 2 attention, 14
+#: Mamba, 8 MoE; 26.05 B parameters, 52.1 GB in bfloat16): its full depth
+#: needs 103 GB, more than the card holds
+MIXER_SERVED = (("rwkv6-7b", None), ("llama-3.2-vision-11b", None),
+                ("whisper-large-v3", None), ("jamba-v0.1-52b", 2))
+#: the recurrent archs whose prefill is timed per layer (their scans are
+#: plain torch: a token loop for RWKV, a doubling scan for Mamba)
+SCAN_ARCHS = ("rwkv6-7b", "jamba-v0.1-52b")
+#: bfloat16 decode_step logits against the prefill logits of the same
+#: tokens (jamba-v0.1-52b, 16 layers): ulps of the largest |logit|.  The
+#: one-token and the 513-token paths round every activation to bfloat16
+#: after products of other shapes, so they differ by more than kernels
+#: and plain versions on one path do
+BF16_PREFILL_ULPS = 32
+
+
+def mixer_counts(cfg) -> dict:
+    """Layers of each kind: self-attention (paged decode, a causal flash
+    forward a prefill), cross-attention (a non-causal flash forward a
+    prefill) and MoE FFNs."""
+    def n(pred):
+        return cfg.repeats * sum(1 for s in cfg.pattern if pred(s))
+
+    return {"self": n(lambda s: s.mixer in ("attn", "attn+cross")),
+            "cross": n(lambda s: s.mixer in ("cross_attn", "attn+cross")),
+            "moe": n(lambda s: s.ffn == "moe")}
+
+
+def mixer_teacher(torch, counters, cfg, params, dt):
+    """4 slots prefilled one at a time through the kernels (as
+    ``serve_continuous`` admits them) with prompts of 512, 300, 150 and 77
+    tokens; then the next prompt token teacher-forced through one
+    ``decode_step``, through the kernels and through the plain versions
+    (``attn_impl="ref"``, ``moe_impl="slot"``, the gather) on copies of
+    that cache, and held: against each other (float32 atol 1e-3,
+    bfloat16 :func:`bf16_hold`) and against the logits a prefill of the
+    prompt with that token gives at its last position (float32 atol
+    2e-3, bfloat16 BF16_PREFILL_ULPS ulps: the recurrent states and shift
+    registers the prefill left, stepped once, against the scans over one
+    more token); then 16 greedy ``decode_loop`` steps on both paths
+    (float32: tokens equal; bfloat16: the agreement printed).  MoE archs
+    run this at capacity factor 8, where no token is dropped, as the
+    reference's decode-vs-forward test does.  Returns the decode state for
+    the profile and the result."""
+    from repro_torch.models import decoder as dec
+    from repro_torch.tree import tree_map
+
+    n = mixer_counts(cfg)
+    cf = 8.0 if cfg.has_moe else cfg.moe_capacity_factor
+    cfg_p = dataclasses.replace(cfg, kv_impl="paged", moe_capacity_factor=cf)
+    cfg_s = dataclasses.replace(cfg_p, attn_impl="ref", moe_impl="slot")
+    plens = [512, 300, 150, 77]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab, (len(plens), max(plens) + 1),
+                            generator=g, device="cuda", dtype=torch.int32)
+    # room for the 1 + 16 steps here and phase_profile's 3 x 8 after them
+    cache = dec.init_cache(cfg_p, len(plens), max(plens) + 64, dtype=dt,
+                           device="cuda")
+    want = []
+    for b, L in enumerate(plens):
+        sub = dec.slot_cache(cache, b)
+        _, sub = dec.prefill(params, cfg_p, prompts[b:b + 1, :L], sub,
+                             compute_dtype=dt)
+        cache = dec.merge_slot_cache(cache, sub, b)
+        one = dec.init_cache(cfg_p, 1, L + 16, dtype=dt, device="cuda")
+        lg, _ = dec.prefill(params, cfg_p, prompts[b:b + 1, :L + 1], one,
+                            compute_dtype=dt)
+        want.append(lg[0, L:L + 1])
+        del one, lg
+    want = torch.stack(want)                         # (4, 1, V)
+    tok = prompts[torch.arange(len(plens), device="cuda"),
+                  torch.tensor(plens, device="cuda")][:, None]
+    plain = tree_map(lambda t: t.clone(), cache)    # the state steps in place
+    n0 = {k: fn.launches for k, fn in counters.items()}
+    la, cache = dec.decode_step(params, cfg_p, tok, cache, compute_dtype=dt,
+                                impl="auto")
+    n1 = {k: fn.launches for k, fn in counters.items()}
+    lb, plain = dec.decode_step(params, cfg_s, tok, plain, compute_dtype=dt,
+                                impl="gather")
+    torch.cuda.synchronize()
+    expect = {"paged_decode": n["self"], "moe_dispatch": n["moe"],
+              "moe_combine": n["moe"]}
+    launched = {k: n1[k] - n0[k] for k in counters}
+    check(all(launched[k] == expect.get(k, 0) for k in counters),
+          f"{cfg.name} teacher-forced decode_step: launches {launched}, "
+          f"expected {expect}")
+    check(all(fn.launches == n1[k] for k, fn in counters.items()),
+          f"{cfg.name}: the plain decode_step launched a kernel")
+    check(bool(torch.isfinite(la.float()).all()), f"{cfg.name}: non-finite "
+          "decode logits")
+    V = cfg.vocab
+    res = {}
+    for what, a, b in (("kernels vs plain versions", la, lb),
+                       ("decode_step vs prefill of the same tokens", la,
+                        want)):
+        label = f"{cfg.name} teacher-forced {what}"
+        if dt == torch.float32:
+            tol = 1e-3 if b is lb else 2e-3
+            err = (a - b)[..., :V].abs().max().item()
+            check(err <= tol, f"{label}: max|dlogit| {err:.3e} > {tol:.0e}")
+            agree = (a[..., :V].argmax(-1) == b[..., :V].argmax(-1)).float()
+            agree = agree.mean().item()
+        elif b is lb:
+            err, tol, agree = bf16_hold(torch, a, b, V, label)
+        else:
+            tol = bf16_ulps(torch, b.float()[..., :V], BF16_PREFILL_ULPS)
+            err = (a.float() - b.float())[..., :V].abs().max().item()
+            check(err <= tol, f"{label}: max|dlogit| {err:.4e} > "
+                  f"{BF16_PREFILL_ULPS} bf16 ulps ({tol:.4e})")
+            agree = (a[..., :V].argmax(-1) == b[..., :V].argmax(-1)).float()
+            agree = agree.mean().item()
+        say("mixers", f"{label} (prompts {plens}, {str(dt)[6:]}): max|dlogit|"
+            f" {err:.4e} (tolerance {tol:.4e}); greedy tokens agree at "
+            f"{agree:.3f}")
+        res[what] = {"max_abs_dlogit": err, "tol": tol, "greedy_agree": agree}
+    nxt = lb[..., :V].argmax(-1).to(torch.int32)
+    ta, after, cache = dec.decode_loop(params, cfg_p, nxt, cache, 0, 16,
+                                       compute_dtype=dt, impl="auto")
+    tb, _, _ = dec.decode_loop(params, cfg_s, nxt, plain, 0, 16,
+                               compute_dtype=dt, impl="gather")
+    same = (ta == tb).float().mean().item()
+    check(dt != torch.float32 or same == 1.0, f"{cfg.name}: 16 greedy steps "
+          f"through the kernels and the plain versions agree at {same:.3f}")
+    say("mixers", f"{cfg.name}: 16 greedy decode steps x 4 slots, kernels vs"
+        f" plain versions: tokens agree at {same:.3f}")
+    res["greedy_tokens_agree"] = same
+    del plain, ta, tb
+    return (params, cfg_p, cache, after), res
+
+
+def scan_prefill_ms(torch, cfg, params, dt, S: int = 512):
+    """One ``S``-token prefill (one sequence, as ``serve_continuous``
+    admits it) on the host clock and under the profiler: host and device
+    ms, per layer and in all."""
+    from repro_torch.models import decoder as dec
+
+    cfg_p = dataclasses.replace(cfg, kv_impl="paged")
+    cache = dec.init_cache(cfg_p, 1, S + 16, dtype=dt, device="cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab, (1, S), generator=g, device="cuda",
+                           dtype=torch.int32)
+
+    def run():
+        dec.prefill(params, cfg_p, prompt, cache, compute_dtype=dt)
+        torch.cuda.synchronize()
+
+    prof = profile_split(torch, run, cfg.name, f"{S}-token prefill", 1)
+    L = cfg.num_layers
+    say("mixers", f"{cfg.name} {S}-token prefill: {prof['host_ms']:.1f} ms "
+        f"host ({prof['host_ms'] / L:.2f} ms a layer), "
+        f"{prof['device_ms']:.1f} ms device ({prof['device_ms'] / L:.3f} ms "
+        f"a layer), idle {prof['idle']:.3f}, {prof['launches']:.0f} launches")
+    return {"host_ms": prof["host_ms"], "device_ms": prof["device_ms"],
+            "host_ms_per_layer": prof["host_ms"] / L,
+            "device_ms_per_layer": prof["device_ms"] / L,
+            "idle": prof["idle"], "launches": prof["launches"]}
+
+
+def cross_decode_ms(torch, cfg, params, dt):
+    """The one-token cross decode (plain torch: the reference has no TPU
+    kernel for it) of 4 slots over the cross k/v, the first cross layer's
+    weights, CUDA events around 40 calls."""
+    from repro_torch.models import decoder as dec
+    from repro_torch.nn import attention as attn_mod
+
+    j = next(i for i, s in enumerate(cfg.pattern)
+             if s.mixer in ("cross_attn", "attn+cross"))
+    spec = cfg.pattern[j]
+    p = dec._layer_views(params["blocks"][j], 0)
+    p = p["cross"] if spec.mixer == "attn+cross" else p["mixer"]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    B, N, KV, hd = 4, cfg.cross_kv_len, cfg.n_kv_heads, cfg.head_dim
+    sets = [((torch.randn((B, 1, cfg.d_model), generator=g, device="cuda")
+              .to(dt)),
+             {n: torch.randn((B, N, KV, hd), generator=g, device="cuda")
+              .to(dt) for n in ("k", "v")}) for _ in range(4)]
+    cspec = dec._cross_spec(cfg, spec)
+    ms = time_ms(torch, lambda x, kv: attn_mod.decode_attention(
+        p, x, kv, 0, cspec, cross=True), sets)
+    nbytes = 2 * B * N * KV * hd * (torch.finfo(dt).bits // 8)
+    say("mixers", f"{cfg.name} cross decode (plain torch), B{B} H"
+        f"{cfg.n_heads} KV{KV} hd{hd} over {N} keys, {str(dt)[6:]}: "
+        f"{ms:.4f} ms a layer (its k/v alone: {nbytes} bytes, "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s)")
+    return ms
+
+
+def phase_mixers(torch, counters):
+    """MIXER_SERVED at full width, random weights from seed 0 in
+    ARCH_DTYPE, one model on the card at a time: ``serve_continuous`` on
+    phase 5's mix through :func:`counted_serve` (every request completed,
+    the pool conserved, ``paged_decode`` launches = self-attention layers
+    x decode steps, ``flash_fwd`` = (self- + cross-attention layers) x
+    prefills, the MoE kernels MoE layers x (decode steps + prefills); the
+    cross k/v are the reference's zeros, R6), :func:`mixer_teacher`, a
+    profiled decode step (host and device ms, idle share, launches), the
+    recurrent archs' prefill per layer (:func:`scan_prefill_ms`) and the
+    cross archs' one-token cross decode (:func:`cross_decode_ms`).  Prints
+    tok/s, TTFT and peak memory of each."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import decoder as dec
+    from repro_torch.tree import tree_leaves
+
+    results = {}
+    for arch, repeats in MIXER_SERVED:
+        dname = ARCH_DTYPE[arch]
+        dt = getattr(torch, dname)
+        cfg = get_config(arch)
+        if repeats is not None:
+            cfg = dataclasses.replace(cfg, repeats=repeats)
+        n = mixer_counts(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = dec.init_model(cfg, seed=0, device="cuda", dtype=dt)
+        torch.cuda.synchronize()
+        n_par = sum(t.numel() for t in tree_leaves(params))
+        say("mixers", f"{arch} full width, {cfg.num_layers} layers "
+            f"({', '.join(f'{s.mixer}/{s.ffn}' for s in cfg.pattern)} x "
+            f"{cfg.repeats}), d_model {cfg.d_model}"
+            + (f", encoder {cfg.encoder.num_layers} layers over "
+               f"{cfg.encoder.frames} frames" if cfg.encoder else "")
+            + (f", cross k/v {cfg.cross_kv_len}" if cfg.cross_kv_len else "")
+            + f"; {n_par} {dname} parameters from seed 0 in "
+            f"{time.perf_counter() - t0:.1f} s; "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+        out, launches = counted_serve(torch, counters, cfg, params,
+                                      compute_dtype=dt, phase="mixers")
+        steps, pre = out["decode_steps"], out["prefills"]
+        want = {"paged_decode": n["self"] * steps,
+                "flash_fwd": (n["self"] + n["cross"]) * pre,
+                "moe_dispatch": n["moe"] * (steps + pre),
+                "moe_combine": n["moe"] * (steps + pre)}
+        check(all(launches[k] == want.get(k, 0) for k in counters),
+              f"{arch}: launches {launches}, expected {want} ({steps} "
+              f"decode steps, {pre} prefills, layers {n})")
+        say("mixers", f"{arch}: launches = layers {n} x ({steps} decode "
+            f"steps, {pre} prefills) = {launches}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        state, teacher = mixer_teacher(torch, counters, cfg, params, dt)
+        prof = phase_profile(torch, state, arch, compute_dtype=dt)
+        del state
+        scan = (scan_prefill_ms(torch, cfg, params, dt)
+                if arch in SCAN_ARCHS else None)
+        cross = cross_decode_ms(torch, cfg, params, dt) if n["cross"] else None
+        ttft = [t for t in out["ttft_s"] if t is not None]
+        results[arch] = {
+            "dtype": dname, "layers": cfg.num_layers, "params": n_par,
+            "launches": launches, "decode_steps": steps, "prefills": pre,
+            "decode_tok_per_s": out["decode_tok_per_s_in_chunks"],
+            "run_tok_per_s": out["decode_tok_per_s"],
+            "ttft_p50_ms": statistics.median(ttft) * 1e3,
+            "ttft_max_ms": max(ttft) * 1e3, "peak_gb": peak,
+            "step_host_ms": prof["host_ms"],
+            "step_device_ms": prof["device_ms"], "idle": prof["idle"],
+            "step_launches": prof["launches"], "split_ms": prof["split_ms"],
+            "teacher": teacher, "prefill_512": scan,
+            "cross_decode_ms": cross}
+        r = results[arch]
+        say("mixers", f"{arch} ({dname}, {cfg.num_layers} layers): decode "
+            f"{r['decode_tok_per_s']:.1f} tok/s in chunks, TTFT p50 "
+            f"{r['ttft_p50_ms']:.1f} ms, max {r['ttft_max_ms']:.1f} ms; serve "
+            f"peak memory {peak:.2f} GB; a decode step {prof['host_ms']:.2f} "
+            f"ms host, {prof['device_ms']:.3f} ms device (idle "
+            f"{prof['idle']:.3f}, {prof['launches']:.0f} launches)")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return results
+
+
+#: phase 17's 2-layer full-width training checks: (arch, batch, tokens)
+#: and how each is cut to 2 layers: whisper-large-v3 2 encoder layers
+#: over its 1,500 frames and 2 decoder layers; llama-3.2-vision-11b one
+#: self- and one cross-attention layer over 1,601 patches; jamba-v0.1-52b
+#: one Mamba and one attention + MoE layer (its period's layers 2 and 3)
+#: in bfloat16; rwkv6-7b 2 layers (no kernel: held against the CPU)
+MIXER_TEACHER = (("whisper-large-v3", 2, 448), ("llama-3.2-vision-11b", 2, 512),
+                 ("jamba-v0.1-52b", 1, 512), ("rwkv6-7b", 1, 64))
+
+
+def two_layer_config(cfg):
+    from repro_torch.models.config import EncoderConfig
+
+    if cfg.encoder is not None:
+        return dataclasses.replace(cfg, repeats=2, encoder=EncoderConfig(
+            num_layers=2, frames=cfg.encoder.frames))
+    if len(cfg.pattern) == 1:
+        return dataclasses.replace(cfg, repeats=2)
+    j = next(i for i, s in enumerate(cfg.pattern)
+             if s.mixer in ("attn", "cross_attn") and i > 0
+             and s.mixer != cfg.pattern[i - 1].mixer)
+    return dataclasses.replace(cfg, pattern=cfg.pattern[j - 1:j + 1],
+                               repeats=1)
+
+
+def phase_mixer_teacher(torch, counters):
+    """One ``loss_fn`` with its gradients at full width and 2 layers
+    (:func:`two_layer_config`, MIXER_TEACHER), through the kernels against
+    the plain versions (``attn_impl="ref"``, ``moe_impl="slot"``) on the
+    card, with the stub context the data pipeline draws.  float32: the
+    loss to 1e-5 relative and each gradient leaf to 1e-3 of its largest
+    entry (phase 9's); jamba-v0.1-52b in bfloat16: the loss within 2^-7
+    relative and the global gradient norm within 2^-5 (phase 16's OLMoE
+    check); rwkv6-7b has no kernel, so its loss and gradients on the card
+    are held against the same run on the CPU at the float32 tolerances.
+    Launches: each attention call (encoder, self, cross) runs the flash
+    forward twice (forward and remat recompute) and each backward pass
+    once, each MoE kernel 3 times a layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokenDataset
+    from repro_torch.models import decoder as dec
+    from repro_torch.optim import clip_by_global_norm
+    from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+    by_arch = {}
+    for arch, B, S in MIXER_TEACHER:
+        dt = getattr(torch, ARCH_DTYPE[arch])
+        cfg = two_layer_config(get_config(arch))
+        params = dec.init_model(cfg, seed=0, device="cuda", dtype=dt)
+        ctx = cfg.encoder.frames if cfg.encoder else cfg.cross_kv_len
+        batch = _batch_on_card(torch, SyntheticTokenDataset(
+            cfg.vocab, B, S, context_len=ctx, d_model=cfg.d_model), 0)
+
+        def value_and_grads(cfg_x, p=params, b=batch):
+            leaves = [t.detach().requires_grad_(True)
+                      for t in tree_leaves(p)]
+            loss = dec.loss_fn(tree_unflatten(p, leaves), cfg_x, b,
+                               compute_dtype=dt)
+            return loss.item(), torch.autograd.grad(loss, leaves)
+
+        n0 = {k: fn.launches for k, fn in counters.items()}
+        loss_k, g_k = value_and_grads(cfg)
+        n1 = {k: fn.launches for k, fn in counters.items()}
+        if arch == "rwkv6-7b":
+            other = "the CPU"
+            loss_r, g_r = value_and_grads(
+                cfg, tree_map(lambda t: t.cpu(), params),
+                {k: v.cpu() for k, v in batch.items()})
+            g_r = [g.to("cuda") for g in g_r]
+        else:
+            other = "plain versions"
+            loss_r, g_r = value_and_grads(
+                dataclasses.replace(cfg, attn_impl="ref", moe_impl="slot"))
+        torch.cuda.synchronize()
+        launched = {k: n1[k] - n0[k] for k in counters}
+        check(all(fn.launches == n1[k] for k, fn in counters.items()),
+              f"{arch}: the plain run launched a kernel")
+        n = mixer_counts(cfg)
+        calls = n["self"] + n["cross"] + (cfg.encoder.num_layers
+                                          if cfg.encoder else 0)
+        want = {"flash_fwd": 2 * calls, "flash_bwd_dkdv": calls,
+                "flash_bwd_dq": calls, "moe_dispatch": 3 * n["moe"],
+                "moe_combine": 3 * n["moe"]}
+        check(all(launched[k] == want.get(k, 0) for k in counters),
+              f"{arch}: kernel launches {launched}, expected {want}")
+        check(math.isfinite(loss_k) and all(bool(torch.isfinite(g).all())
+                                            for g in g_k),
+              f"{arch}: non-finite loss or gradient")
+        dloss = abs(loss_k - loss_r)
+        if dt == torch.float32:
+            rel = max(((a - b).abs().max()
+                       / b.abs().max().clamp_min(1e-30)).item()
+                      for a, b in zip(g_k, g_r))
+            check(dloss <= 1e-5 * abs(loss_r), f"{arch}: loss {loss_k} vs "
+                  f"{other} {loss_r}")
+            check(rel <= 1e-3, f"{arch}: a gradient leaf is off by "
+                  f"{rel:.3e} of its largest entry (> 1e-3)")
+            how = f"worst gradient leaf max|d| / max|g| {rel:.3e} (tol 1e-3)"
+        else:
+            norm_k = clip_by_global_norm(list(g_k), 1.0)[1].item()
+            norm_r = clip_by_global_norm(list(g_r), 1.0)[1].item()
+            rel = abs(norm_k - norm_r) / norm_r
+            check(dloss <= 2 ** -7 * abs(loss_r) and rel <= 2 ** -5,
+                  f"{arch} bfloat16: loss {loss_k} vs {loss_r}, grad norm "
+                  f"{norm_k} vs {norm_r}")
+            how = (f"grad norm {norm_k:.6f} vs {norm_r:.6f} (relative "
+                   f"{rel:.3e}, tol 2^-5)")
+        layers = ", ".join(f"{s.mixer}/{s.ffn}" for s in cfg.pattern) + (
+            f" x {cfg.repeats}") + (f", encoder {cfg.encoder.num_layers}"
+                                    if cfg.encoder else "")
+        say("mixers", f"{arch} full width, 2 layers ({layers}), {B} x {S} "
+            f"tokens" + (f", context {ctx}" if ctx else "") + f", "
+            f"{str(dt)[6:]}: loss {loss_k:.6f} (card) vs {loss_r:.6f} "
+            f"({other}), |dloss| {dloss:.3e}; {how}; kernel launches "
+            f"{launched}")
+        by_arch[arch] = {"launches": launched, "dloss": dloss,
+                         "grad_rel": rel}
+        del params, g_k, g_r, batch
+        torch.cuda.empty_cache()
+    return by_arch
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", metavar="NAME.cu", action="append",
@@ -3318,6 +3803,12 @@ def main(argv=None) -> int:
     olmoe_train = phase_olmoe_train(torch, counters)
     say("archs", f"phase 16 took {time.perf_counter() - t0:.1f} s")
 
+    # 17. the recurrent and encoder mixers' archs at full width
+    t0 = time.perf_counter()
+    mixers = phase_mixers(torch, counters)
+    mixer_teacher_runs = phase_mixer_teacher(torch, counters)
+    say("mixers", f"phase 17 took {time.perf_counter() - t0:.1f} s")
+
     #: the main paths, each run with the counts set to 0 just before it
     #: and read just after; ``launches`` sums them
     main_paths = (("llama3.2-1b serve", llama_launches),
@@ -3326,13 +3817,17 @@ def main(argv=None) -> int:
                   *((f"{a} serve ({r['dtype']})", r["launches"])
                     for a, r in archs.items()),
                   ("olmoe-1b-7b train, 16 layers, bfloat16",
-                   olmoe_train["launches"]))
+                   olmoe_train["launches"]),
+                  *((f"{a} serve ({r['dtype']}, {r['layers']} layers)",
+                     r["launches"]) for a, r in mixers.items()))
     paths = (*main_paths,
              ("llama3.2-1b serve --replan", replan_launches),
              ("olmoe-1b-7b 2-layer train check",
               teacher["olmoe-1b-7b"]["launches"]),
              *((f"{a} 2-layer train check", r["launches"])
                for a, r in arch_teacher.items()),
+             *((f"{a} 2-layer train check", r["launches"])
+               for a, r in mixer_teacher_runs.items()),
              *cli_launches.items())
     by_path = {k: {p: n[k] for p, n in paths if n.get(k)} for k in counters}
     on_main = {k: sum(n.get(k, 0) for _, n in main_paths) for k in counters}
@@ -3360,9 +3855,10 @@ def main(argv=None) -> int:
             **{k: t["decode"][k] for k in TIMED},
             "shape": "olmoe-1b-7b decode, G4 S1 E64 K8 C8 D2048",
             "prefill": {k: t["prefill"][k] for k in TIMED},
-            "qwen3_bfloat16": {what: {k: t[f"qwen3 {what}"][k]
-                                      for k in TIMED}
-                               for what in ("decode", "prefill")},
+            **{f"{m}_bfloat16": {what: {k: t[f"{m} {what}"][k]
+                                        for k in TIMED}
+                                 for what in ("decode", "prefill")}
+               for m in ("qwen3", "jamba")},
             # median / min / p90 of the cold calls and the warm time, the
             # empty-kernel floor, and the time per call in the olmoe
             # decode and prefill profiles
@@ -3386,6 +3882,8 @@ def main(argv=None) -> int:
                      "causal, float32",
             "bfloat16": {k: t["bfloat16"][k] for k in TIMED},
             "gemma2_prefill": flash_timing["gemma2_prefill"][kname],
+            **{key: flash_timing[key][kname]
+               for key, *_ in FLASH_MIXER_TIMED},
         })
         if kname != "flash_fwd":
             total = flash_timing["backward_total"]
@@ -3394,7 +3892,9 @@ def main(argv=None) -> int:
                 **{k: total["float32"][k] for k in TIMED},
                 "bfloat16": {k: total["bfloat16"][k] for k in TIMED},
                 "gemma2_prefill": flash_timing["gemma2_prefill"][
-                    "backward_total"]}
+                    "backward_total"],
+                **{key: flash_timing[key]["backward_total"]
+                   for key, *_ in FLASH_MIXER_TIMED}}
     t = bag_timing["ctr hot-cache lookup"]
     kernels.append({
         "name": "embedding_bag", "route": "cuda",

@@ -218,13 +218,14 @@ def serve_continuous(arch: str, *, reduced: bool = True,
       ``time.perf_counter``); a virtual clock makes deadline behaviour
       deterministic (idle waits then spin instead of sleeping).
 
-    ``params`` (the model's weights) and ``prompts`` (one int array of
-    length ``prompt_len`` per request) replace the seeded ones; tests use
-    them to replay the reference's weights and prompts.
+    ``arch`` is an arch id or an :class:`ArchConfig` (a config cut in
+    depth, say).  ``params`` (the model's weights) and ``prompts`` (one
+    int array of length ``prompt_len`` per request) replace the seeded
+    ones; tests use them to replay the reference's weights and prompts.
     """
     dev = resolve_device(device)
-    cfg = dataclasses.replace(get_config(arch, reduced=reduced),
-                              kv_impl="paged")
+    cfg = get_config(arch, reduced=reduced) if isinstance(arch, str) else arch
+    cfg = dataclasses.replace(cfg, kv_impl="paged")
     if params is None:
         params = dec.init_model(cfg, seed=seed, device=dev)
     if requests is None:

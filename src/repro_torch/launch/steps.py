@@ -27,7 +27,8 @@ def make_train_step(cfg: ArchConfig, *, lr: float = 3e-4,
 
     ``train_step(params, opt_state, batch)`` takes a tree of tensors, an
     :class:`~repro_torch.optim.OptState` and {"tokens", "labels"} (B, S)
-    integer tensors on the parameters' device, and returns
+    integer tensors (plus the (B, N, D) "context" of the audio and
+    vision archs) on the parameters' device, and returns
     ``(params, opt_state, {"loss", "grad_norm"})`` with the metrics as
     device scalars.  The update is in place (see
     :mod:`repro_torch.optim.optimizers`)."""
@@ -75,6 +76,7 @@ def make_prefill_step(cfg: ArchConfig, *, compute_dtype=torch.bfloat16):
     @torch.no_grad()
     def prefill_step(params, batch):
         logits, _ = dec.forward(params, cfg, batch["tokens"],
+                                context=batch.get("context"),
                                 compute_dtype=compute_dtype, remat=False)
         return logits
 

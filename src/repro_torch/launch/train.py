@@ -67,7 +67,10 @@ def train(arch, *, reduced: bool = True, steps: int = 50, batch: int = 8,
     params, opt_state = init_train_state(cfg, seed=seed, device=dev)
     n_params = sum(t.numel() for t in tree_leaves(params))
 
-    ds = SyntheticTokenDataset(cfg.vocab, batch, seq, seed=seed)
+    # the audio and vision archs train on stub frontend embeddings
+    ctx_len = cfg.encoder.frames if cfg.encoder else cfg.cross_kv_len
+    ds = SyntheticTokenDataset(cfg.vocab, batch, seq, seed=seed,
+                               context_len=ctx_len, d_model=cfg.d_model)
     loader = PrefetchLoader(ds, depth=2)
     step_fn = make_train_step(cfg, lr=lr, microbatch=microbatch,
                               compute_dtype=compute_dtype)

@@ -1,30 +1,41 @@
-"""Block-pattern decoder: init, prefill, decode (port of
-``repro.models.decoder`` for attention archs with dense or MoE FFNs).
+"""Block-pattern decoder: init, forward, loss, prefill, decode (port of
+``repro.models.decoder``) for every mixer of the reference — attention,
+cross-attention, attention + cross (whisper's decoder), Mamba and RWKV-6 —
+with dense, MoE or channel-mix FFNs, learned or rotary positions, and the
+whisper-style bidirectional encoder.
 
 Parameters keep the reference's tree: ``embed``, ``final_norm``,
-optional ``lm_head`` and ``blocks`` — a tuple over the pattern whose
-leaves are stacked on a leading ``repeats`` axis — with weights
-``(d_in, d_out)`` used as ``x @ w``.  Layer ``r`` of pattern position
-``j`` is the view ``blocks[j][...][r]``.
+optional ``lm_head`` and ``pos`` (learned positions), optional
+``encoder`` (``blocks`` stacked over its layers, ``final_norm``, ``pos``)
+and ``blocks`` — a tuple over the pattern whose leaves are stacked on a
+leading ``repeats`` axis — with weights ``(d_in, d_out)`` used as
+``x @ w``.  Layer ``r`` of pattern position ``j`` is the view
+``blocks[j][...][r]``.
 
 Entry points:
   * :func:`init_model`  — parameter tree from a seeded ``torch.Generator``
   * :func:`forward`     — full-sequence logits (+ MoE aux loss)
   * :func:`loss_fn`     — token cross-entropy (+ MoE aux loss), the
     training objective
-  * :func:`init_cache`  — decode cache (paged page pool or dense rings)
+  * :func:`init_cache`  — decode cache (paged page pool or dense rings,
+    per-slot recurrent state and cross k/v)
   * :func:`prefill`     — one forward that fills the cache
   * :func:`decode_step` — one-token step against the cache
   * :func:`decode_loop` — ``steps`` decode steps, tokens kept on device
 
-Caches are updated in place (the new k/v land in the caller's pool or
-ring tensors); functions still return the cache dict so call sites read
-like the reference's.  Mamba/RWKV mixers, cross-attention and encoders
-wait for later slices and raise ``NotImplementedError``.
+Caches are updated in place (the new k/v and recurrent states land in the
+caller's tensors); functions still return the cache dict so call sites
+read like the reference's.
+
+Cross-attention is non-causal on every path, where the reference's
+training path masks context frame j from query t whenever j > t
+(ROADMAP.md R7).  Serving keeps the reference's zero cross k/v: nothing
+fills ``ck``/``cv`` (R6), so a cross layer adds exactly 0 when serving.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any
 
@@ -35,22 +46,15 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import paged_attention as paged_k
 from repro_torch.models.config import ArchConfig, LayerSpec
 from repro_torch.nn import attention as attn_mod
+from repro_torch.nn import mamba as mamba_mod
 from repro_torch.nn import moe as moe_mod
+from repro_torch.nn import rwkv as rwkv_mod
 from repro_torch.nn.attention import AttnSpec
 from repro_torch.nn.base import layernorm, masked_nll, rmsnorm, softcap
 from repro_torch.tree import tree_map as _tree_map
 
-
-def _check_supported(cfg: ArchConfig) -> None:
-    for s in cfg.pattern:
-        if s.mixer != "attn" or s.ffn not in ("dense", "moe", "none"):
-            raise NotImplementedError(
-                f"{cfg.name}: mixer {s.mixer!r} / ffn {s.ffn!r} are not "
-                "ported yet (ROADMAP.md queue 1 item 10)")
-    if cfg.encoder is not None or cfg.cross_kv_len or cfg.pos_embed == "learned":
-        raise NotImplementedError(
-            f"{cfg.name}: encoders, cross-attention and learned positions "
-            "are not ported yet (ROADMAP.md queue 1 item 10)")
+#: the whisper encoder's layer: bidirectional self-attention, dense FFN
+ENCODER_LAYER = LayerSpec(mixer="attn", ffn="dense", rope=False)
 
 
 def _attn_spec(cfg: ArchConfig, spec: LayerSpec, *, causal=True) -> AttnSpec:
@@ -61,6 +65,13 @@ def _attn_spec(cfg: ArchConfig, spec: LayerSpec, *, causal=True) -> AttnSpec:
         rope_theta=cfg.rope_theta, rope_fraction=spec.rope_fraction,
         qk_norm=spec.qk_norm, impl=cfg.attn_impl,
     )
+
+
+def _cross_spec(cfg: ArchConfig, spec: LayerSpec) -> AttnSpec:
+    """Cross-attention attends every context frame: non-causal, no
+    window (the reference's ``attention_with_kv`` and cross decode)."""
+    return dataclasses.replace(_attn_spec(cfg, spec), causal=False,
+                               window=None)
 
 
 def _norm_init(cfg: ArchConfig, d: int, device, dtype):
@@ -88,8 +99,22 @@ def _cast(p, dtype):
 def _init_layer(gen, cfg: ArchConfig, spec: LayerSpec, device, dtype):
     d = cfg.d_model
     p: dict[str, Any] = {"norm1": _norm_init(cfg, d, device, dtype)}
-    p["mixer"] = attn_mod.init_attention(gen, d, _attn_spec(cfg, spec),
-                                         device=device, dtype=dtype)
+    if spec.mixer in ("attn", "cross_attn", "attn+cross"):
+        p["mixer"] = attn_mod.init_attention(gen, d, _attn_spec(cfg, spec),
+                                             device=device, dtype=dtype)
+        if spec.mixer == "attn+cross":
+            p["norm_cross"] = _norm_init(cfg, d, device, dtype)
+            p["cross"] = attn_mod.init_attention(
+                gen, d, _attn_spec(cfg, spec), device=device, dtype=dtype)
+    elif spec.mixer == "mamba":
+        p["mixer"] = mamba_mod.init_mamba(
+            gen, d, d_state=cfg.mamba_d_state, d_conv=cfg.mamba_d_conv,
+            expand=cfg.mamba_expand, device=device, dtype=dtype)
+    elif spec.mixer == "rwkv":
+        p["mixer"] = rwkv_mod.init_time_mix(
+            gen, d, head_size=cfg.rwkv_head_size, device=device, dtype=dtype)
+    else:
+        raise ValueError(f"unknown mixer {spec.mixer!r}")
     if spec.ffn != "none":
         p["norm2"] = _norm_init(cfg, d, device, dtype)
     if spec.ffn == "dense":
@@ -99,6 +124,9 @@ def _init_layer(gen, cfg: ArchConfig, spec: LayerSpec, device, dtype):
         p["ffn"] = moe_mod.init_moe(gen, d, cfg.moe_d_ff or cfg.d_ff,
                                     cfg.moe_experts, device=device,
                                     dtype=dtype)
+    elif spec.ffn == "channel_mix":
+        p["ffn"] = rwkv_mod.init_channel_mix(gen, d, cfg.d_ff, device=device,
+                                             dtype=dtype)
     if spec.post_norm:
         p["norm_post1"] = _norm_init(cfg, d, device, dtype)
         if spec.ffn != "none":
@@ -109,42 +137,54 @@ def _init_layer(gen, cfg: ArchConfig, spec: LayerSpec, device, dtype):
 def init_model(cfg: ArchConfig, *, seed: int = 0, device=None,
                dtype=torch.float32):
     """Random parameters with the reference's distributions and scales
-    (embedding and head N(0, 1/d_model), projections as in
-    ``nn.attention.init_attention`` / ``nn.moe.init_dense_ffn`` /
-    ``nn.moe.init_moe``, norms 1), drawn layer by layer from a
-    ``torch.Generator`` seeded with ``seed`` on ``device``.  Each layer is
-    copied into its slot of the stacked leaves as it is drawn, so the
-    peak is the stacked tree plus one layer (OLMoE-1B-7B's expert weights
-    are 27 GB in float32).
+    (embedding and head N(0, 1/d_model), learned positions N(0, 0.02²),
+    each mixer and FFN as its ``nn`` module's init, norms 1), drawn layer
+    by layer from a ``torch.Generator`` seeded with ``seed`` on
+    ``device``.  Each layer is copied into its slot of the stacked leaves
+    as it is drawn, so the peak is the stacked tree plus one layer
+    (OLMoE-1B-7B's expert weights are 27 GB in float32).
     The draws differ from ``jax.random``'s: parity tests convert the
     reference's weights with :func:`repro_torch.models.convert.params_from_jax`.
     """
     cfg.validate()
-    _check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     d, vp = cfg.d_model, cfg.padded_vocab
     s = 1.0 / math.sqrt(d)
+
+    def normal(shape, scale):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=dtype).mul_(scale)
+
     params: dict[str, Any] = {
-        "embed": torch.randn((vp, d), generator=gen, device=dev,
-                             dtype=dtype) * s,
+        "embed": normal((vp, d), s),
         "final_norm": _norm_init(cfg, d, dev, dtype),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = torch.randn((d, vp), generator=gen, device=dev,
-                                        dtype=dtype) * s
-    params["blocks"] = tuple(_init_stacked(gen, cfg, spec, dev, dtype)
-                             for spec in cfg.pattern)
+        params["lm_head"] = normal((d, vp), s)
+    if cfg.pos_embed == "learned":
+        params["pos"] = normal((cfg.max_position, d), 0.02)
+    params["blocks"] = tuple(
+        _init_stacked(gen, cfg, spec, cfg.repeats, dev, dtype)
+        for spec in cfg.pattern)
+    if cfg.encoder is not None:
+        params["encoder"] = {
+            "blocks": _init_stacked(gen, cfg, ENCODER_LAYER,
+                                    cfg.encoder.num_layers, dev, dtype),
+            "final_norm": _norm_init(cfg, d, dev, dtype),
+            "pos": normal((cfg.encoder.frames, d), 0.02),
+        }
     return params
 
 
-def _init_stacked(gen, cfg: ArchConfig, spec: LayerSpec, device, dtype):
-    """``repeats`` layers of ``spec`` stacked on a leading axis, each
-    drawn and copied into place in turn."""
+def _init_stacked(gen, cfg: ArchConfig, spec: LayerSpec, n: int, device,
+                  dtype):
+    """``n`` layers of ``spec`` stacked on a leading axis, each drawn and
+    copied into place in turn."""
     first = _init_layer(gen, cfg, spec, device, dtype)
-    out = _tree_map(lambda a: a.new_empty((cfg.repeats, *a.shape)), first)
-    for r in range(cfg.repeats):
+    out = _tree_map(lambda a: a.new_empty((n, *a.shape)), first)
+    for r in range(n):
         layer = first if r == 0 else _init_layer(gen, cfg, spec, device,
                                                  dtype)
         _copy_into(out, layer, r)
@@ -164,22 +204,62 @@ def _copy_into(dst, src, r: int) -> None:
 # --------------------------------------------------------------------------
 
 
+def _layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int,
+                 cache_len: int, dtype, device, *, pool=None):
+    """One layer's decode cache: the self-attention's ring buffers (or
+    its share of the page pool when ``pool = (num_pages, page_size)``),
+    the cross k/v ``ck``/``cv`` (batch, cross_kv_len, KV, hd), the Mamba
+    state ``h``/``conv`` or the RWKV state ``state``/``tm_shift``/
+    ``cm_shift`` — per slot, whatever the layout of the self-attention."""
+    c: dict[str, Any] = {}
+    if spec.mixer in ("attn", "attn+cross"):
+        aspec = _attn_spec(cfg, spec)
+        if pool is not None:
+            c.update(attn_mod.init_paged_kv_cache(*pool, aspec, dtype,
+                                                  device=device))
+        else:
+            L = cache_len if spec.window is None else min(cache_len,
+                                                          spec.window)
+            c.update(attn_mod.init_kv_cache(batch, L, aspec, dtype,
+                                            device=device))
+    if spec.mixer in ("cross_attn", "attn+cross"):
+        shape = (batch, cfg.cross_kv_len, cfg.n_kv_heads, cfg.head_dim)
+        c["ck"] = torch.zeros(shape, dtype=dtype, device=device)
+        c["cv"] = torch.zeros(shape, dtype=dtype, device=device)
+    if spec.mixer == "mamba":
+        c.update(mamba_mod.init_mamba_cache(
+            batch, cfg.d_model, d_state=cfg.mamba_d_state,
+            d_conv=cfg.mamba_d_conv, expand=cfg.mamba_expand, dtype=dtype,
+            device=device))
+    if spec.mixer == "rwkv":
+        c.update(rwkv_mod.init_rwkv_cache(
+            batch, cfg.d_model, head_size=cfg.rwkv_head_size, device=device))
+    return c
+
+
+#: the per-sequence leaves a slot view slices (everything but the pools)
+_POOL_KEYS = ("kp", "vp")
+
+
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
                dtype=torch.bfloat16, *, page_size: int = 16,
                num_pages: int | None = None, device=None):
     """Decode cache, stacked (repeats, …) per pattern position.
 
-    Dense (``cfg.kv_impl == "dense"``): a tuple over the pattern of
-    ``{"k", "v", "pos"}`` ring buffers (window-capped length).
+    Dense (``cfg.kv_impl == "dense"``): a tuple over the pattern of each
+    layer's cache: ``{"k", "v", "pos"}`` ring buffers (window-capped
+    length) for self-attention, ``{"ck", "cv"}`` for cross-attention,
+    ``{"h", "conv"}`` for Mamba, ``{"state", "tm_shift", "cm_shift"}``
+    for RWKV.
 
-    Paged: ``{"layers", "page_table", "length", "active"}`` — the layers
-    hold ``{"kp", "vp"}`` page pools of ``num_pages`` pages (default:
-    enough for every slot, identity-allocated: slot b owns pages
-    ``[1 + b·P, 1 + (b+1)·P)``); below full coverage the table starts at
-    the scratch page and the host :class:`~repro_torch.kernels.PagePool`
-    assigns it.  ``length`` carries per-sequence positions and ``active``
-    masks live slots."""
-    _check_supported(cfg)
+    Paged: ``{"layers", "page_table", "length", "active"}`` — the
+    self-attention layers hold ``{"kp", "vp"}`` page pools of
+    ``num_pages`` pages (default: enough for every slot,
+    identity-allocated: slot b owns pages ``[1 + b·P, 1 + (b+1)·P)``);
+    below full coverage the table starts at the scratch page and the host
+    :class:`~repro_torch.kernels.PagePool` assigns it.  Cross k/v and
+    recurrent states stay per slot, (repeats, batch, …).  ``length``
+    carries per-sequence positions and ``active`` masks live slots."""
     dev = resolve_device(device)
     paged = cfg.kv_impl == "paged"
     pages_per_seq = -(-cache_len // page_size)
@@ -188,14 +268,8 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
     R = cfg.repeats
     caches = []
     for spec in cfg.pattern:
-        aspec = _attn_spec(cfg, spec)
-        if paged:
-            one = attn_mod.init_paged_kv_cache(num_pages, page_size, aspec,
-                                               dtype, device=dev)
-        else:
-            L = cache_len if spec.window is None else min(cache_len,
-                                                          spec.window)
-            one = attn_mod.init_kv_cache(batch, L, aspec, dtype, device=dev)
+        one = _layer_cache(cfg, spec, batch, cache_len, dtype, dev,
+                           pool=(num_pages, page_size) if paged else None)
         caches.append({k: v[None].repeat(R, *([1] * v.dim()))
                        for k, v in one.items()})
     if not paged:
@@ -219,12 +293,16 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
 # --------------------------------------------------------------------------
 
 
-def _ffn_block(cfg, spec: LayerSpec, p, x, *, with_aux: bool = False):
-    """norm2 → dense or MoE FFN → (post-norm) → residual.  The MoE routes
-    each sequence as one group (prefill: S tokens; decode: 1) through
-    ``cfg.moe_impl``.  Returns ``(x, aux)``: ``aux`` is the MoE's
-    load-balance loss when ``with_aux`` (training) and the FFN is an MoE,
-    else ``None`` — serving never computes it."""
+def _ffn_block(cfg, spec: LayerSpec, p, x, *, mode: str = "seq", cache=None,
+               with_aux: bool = False):
+    """norm2 → FFN → (post-norm) → residual, shared by the training,
+    prefill and decode layers.  The MoE routes each sequence as one group
+    (prefill: S tokens; decode: 1) through ``cfg.moe_impl``.  ``mode``:
+    "seq" (training / forward), "prefill" (also writes the channel-mix's
+    shift state into ``cache``) or "decode" (steps the channel-mix
+    against ``cache``, in place).  Returns ``(x, aux)``: ``aux`` is the
+    MoE's load-balance loss when ``with_aux`` (training) and the FFN is
+    an MoE, else ``None`` — serving never computes it."""
     if spec.ffn == "none":
         return x, None
     h = _norm(cfg, p["norm2"], x)
@@ -238,6 +316,13 @@ def _ffn_block(cfg, spec: LayerSpec, p, x, *, with_aux: bool = False):
         y = moe_mod.moe_forward(p["ffn"], h, top_k=cfg.moe_top_k,
                                 capacity_factor=cfg.moe_capacity_factor,
                                 impl=cfg.moe_impl)
+    elif spec.ffn == "channel_mix":
+        if mode == "decode":
+            y, _ = rwkv_mod.decode_channel_mix(p["ffn"], h, cache)
+        else:
+            y = rwkv_mod.channel_mix_seq(p["ffn"], h)
+            if mode == "prefill":
+                cache["cm_shift"].copy_(h[:, -1])
     else:
         y = moe_mod.dense_ffn(p["ffn"], h)
     if spec.post_norm:
@@ -245,26 +330,53 @@ def _ffn_block(cfg, spec: LayerSpec, p, x, *, with_aux: bool = False):
     return x + y, aux
 
 
+def _copy_state(cache, state: dict) -> None:
+    """Write a recurrent mixer's state into the cache's tensors."""
+    for k, v in state.items():
+        cache[k].copy_(v)
+
+
 def _decode_layer(cfg, spec: LayerSpec, p, x, cache, index, *, paged=None,
                   impl: str = "auto"):
-    """One decode layer.  ``paged = (page_table, q_pos, active)`` routes
-    the self-attention through the shared page pool (ragged per-sequence
-    positions); ``None`` keeps the dense ring-buffer path (one
-    ``index``)."""
+    """One decode layer, its cache updated in place.  ``paged =
+    (page_table, q_pos, active)`` routes the self-attention through the
+    shared page pool (ragged per-sequence positions) and gives the
+    ``attn+cross`` decode its per-slot positions; ``None`` keeps the dense
+    ring-buffer path (one ``index``)."""
     p = _cast(p, x.dtype)
     aspec = _attn_spec(cfg, spec)
     h = _norm(cfg, p["norm1"], x)
-    if paged is not None:
-        pt, q_pos, active = paged
-        y, upd = attn_mod.paged_decode_attention(
-            p["mixer"], h, cache, pt, q_pos, aspec, active=active, impl=impl)
-        cache = {**cache, **upd}
-    else:
-        y, cache = attn_mod.decode_attention(p["mixer"], h, cache, index,
+    if spec.mixer in ("attn", "attn+cross"):
+        if paged is not None:
+            pt, q_pos, active = paged
+            y, _ = attn_mod.paged_decode_attention(
+                p["mixer"], h, cache, pt, q_pos, aspec, active=active,
+                impl=impl)
+            cross_index = q_pos
+        else:
+            y, _ = attn_mod.decode_attention(p["mixer"], h, cache, index,
                                              aspec)
-    if spec.post_norm:
+            cross_index = index
+        if spec.mixer == "attn+cross":
+            x = x + y
+            h = _norm(cfg, p["norm_cross"], x)
+            y, _ = attn_mod.decode_attention(
+                p["cross"], h, {"k": cache["ck"], "v": cache["cv"]},
+                cross_index, _cross_spec(cfg, spec), cross=True)
+    elif spec.mixer == "cross_attn":
+        y, _ = attn_mod.decode_attention(
+            p["mixer"], h, {"k": cache["ck"], "v": cache["cv"]}, index,
+            _cross_spec(cfg, spec), cross=True)
+    elif spec.mixer == "mamba":
+        y, _ = mamba_mod.decode_mamba(p["mixer"], h, cache,
+                                      d_state=cfg.mamba_d_state,
+                                      d_conv=cfg.mamba_d_conv)
+    else:
+        y, _ = rwkv_mod.decode_time_mix(p["mixer"], h, cache,
+                                        head_size=cfg.rwkv_head_size)
+    if spec.post_norm and spec.mixer != "attn+cross":
         y = _norm(cfg, p["norm_post1"], y)
-    return _ffn_block(cfg, spec, p, x + y)[0], cache
+    return _ffn_block(cfg, spec, p, x + y, mode="decode", cache=cache)[0]
 
 
 def _embed(params, cfg: ArchConfig, tokens, compute_dtype):
@@ -298,19 +410,48 @@ def _layer_views(tree, r: int):
     return _tree_map(lambda a: a[r], tree)
 
 
+def _arange_positions(B: int, S: int, device):
+    return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
+
+
 # --------------------------------------------------------------------------
 # forward (training)
 # --------------------------------------------------------------------------
 
 
-def _apply_layer(cfg, spec: LayerSpec, p, x, *, positions):
-    """One training layer: attention (flash, ``cfg.attn_impl``) then the FFN.
-    Returns (x, moe_aux) with moe_aux a float32 scalar tensor."""
+def _apply_layer(cfg, spec: LayerSpec, p, x, *, positions, cross_kv=None,
+                 causal=True):
+    """One training / encoder layer: the mixer (attention through the
+    flash kernels, ``cfg.attn_impl``; cross-attention non-causal over
+    ``cross_kv`` (B, N, D)) then the FFN.  Returns (x, moe_aux) with
+    moe_aux a float32 scalar tensor."""
     p = _cast(p, x.dtype)
     h = _norm(cfg, p["norm1"], x)
-    y = attn_mod.attention(p["mixer"], h, _attn_spec(cfg, spec),
-                           positions=positions)
-    if spec.post_norm:
+    if spec.mixer in ("cross_attn", "attn+cross"):
+        kv_pos = _arange_positions(*cross_kv.shape[:2], x.device)
+        kv_x = cross_kv.to(h.dtype)
+    if spec.mixer in ("attn", "attn+cross"):
+        y = attn_mod.attention(p["mixer"], h,
+                               _attn_spec(cfg, spec, causal=causal),
+                               positions=positions)
+        if spec.mixer == "attn+cross":
+            if spec.post_norm:
+                y = _norm(cfg, p["norm_post1"], y)
+            x = x + y
+            h = _norm(cfg, p["norm_cross"], x)
+            y = attn_mod.attention(p["cross"], h, _cross_spec(cfg, spec),
+                                   positions=positions, kv_x=kv_x,
+                                   kv_positions=kv_pos)
+    elif spec.mixer == "cross_attn":
+        y = attn_mod.attention(p["mixer"], h, _cross_spec(cfg, spec),
+                               positions=positions, kv_x=kv_x,
+                               kv_positions=kv_pos)
+    elif spec.mixer == "mamba":
+        y = mamba_mod.mamba(p["mixer"], h, d_state=cfg.mamba_d_state,
+                            d_conv=cfg.mamba_d_conv)
+    else:
+        y = rwkv_mod.time_mix(p["mixer"], h, head_size=cfg.rwkv_head_size)
+    if spec.post_norm and spec.mixer != "attn+cross":
         y = _norm(cfg, p["norm_post1"], y)
     x, aux = _ffn_block(cfg, spec, p, x + y, with_aux=True)
     if aux is None:
@@ -318,7 +459,8 @@ def _apply_layer(cfg, spec: LayerSpec, p, x, *, positions):
     return x, aux
 
 
-def _run_blocks(params, cfg: ArchConfig, x, *, positions, remat=True):
+def _run_blocks(params, cfg: ArchConfig, x, *, positions, cross_kv=None,
+                remat=True):
     """Every layer in order (a Python loop where the reference scans the
     stacked blocks).  With ``remat`` each layer is checkpointed
     (``torch.utils.checkpoint``, non-reentrant): its activations are
@@ -329,37 +471,74 @@ def _run_blocks(params, cfg: ArchConfig, x, *, positions, remat=True):
     for r in range(cfg.repeats):
         p_r = _layer_views(params["blocks"], r)
         for j, spec in enumerate(cfg.pattern):
-            def layer(x, _p=p_r[j], _spec=spec):
-                return _apply_layer(cfg, _spec, _p, x, positions=positions)
+            def layer(x, cross_kv, _p=p_r[j], _spec=spec):
+                return _apply_layer(cfg, _spec, _p, x, positions=positions,
+                                    cross_kv=cross_kv)
 
             if remat:
-                x, a = checkpoint(layer, x, use_reentrant=False)
+                x, a = checkpoint(layer, x, cross_kv, use_reentrant=False)
             else:
-                x, a = layer(x)
+                x, a = layer(x, cross_kv)
             aux = aux + a
     return x, aux
 
 
-def _hidden(params, cfg: ArchConfig, tokens, *, compute_dtype=torch.bfloat16,
-            remat=True):
+def _encode(params, cfg: ArchConfig, context, *, remat=True):
+    """The whisper-style bidirectional encoder over stub frame embeddings
+    ``context`` (B, N, D): learned positions, ``encoder.num_layers``
+    non-causal self-attention layers (each checkpointed with ``remat``),
+    the final norm."""
+    enc = params["encoder"]
+    x = context + enc["pos"][:context.shape[1]].to(context.dtype)
+    positions = _arange_positions(*x.shape[:2], x.device)
+    for r in range(cfg.encoder.num_layers):
+        def layer(x, _p=_layer_views(enc["blocks"], r)):
+            return _apply_layer(cfg, ENCODER_LAYER, _p, x,
+                                positions=positions, causal=False)[0]
+
+        x = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
+    return _norm(cfg, enc["final_norm"], x)
+
+
+def _cross_source(params, cfg: ArchConfig, context, compute_dtype, remat):
+    """What the cross-attention layers attend: the encoder's output for
+    an encoder arch, the stub context itself (image patches) for a
+    cross-attention one, None otherwise."""
+    if cfg.encoder is None and not cfg.cross_kv_len:
+        return None
+    if context is None:
+        raise ValueError(f"{cfg.name} attends a context: pass the stub "
+                         "frontend's embeddings (B, N, d_model)")
+    context = context.to(compute_dtype)
+    if cfg.encoder is not None:
+        return _encode(params, cfg, context, remat=remat)
+    return context
+
+
+def _hidden(params, cfg: ArchConfig, tokens, *, context=None,
+            compute_dtype=torch.bfloat16, remat=True):
     """Backbone up to the final norm.  tokens: (B, S) integer; positions
     are ``arange(S)`` per row, which the flash kernel's index masking
     relies on.  Returns (x (B, S, D), moe_aux)."""
-    _check_supported(cfg)
     B, S = tokens.shape
     x = _embed(params, cfg, tokens, compute_dtype)
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=tokens.device).expand(B, S)
-    x, aux = _run_blocks(params, cfg, x, positions=positions, remat=remat)
+    if cfg.pos_embed == "learned":
+        x = x + params["pos"][:S].to(compute_dtype)
+    cross_kv = _cross_source(params, cfg, context, compute_dtype, remat)
+    x, aux = _run_blocks(params, cfg, x,
+                         positions=_arange_positions(B, S, tokens.device),
+                         cross_kv=cross_kv, remat=remat)
     return _norm(cfg, params["final_norm"], x), aux
 
 
-def forward(params, cfg: ArchConfig, tokens, *, compute_dtype=torch.bfloat16,
-            remat=True):
-    """tokens: (B, S) → (logits (B, S, padded_vocab), moe_aux).  The
-    attention follows ``cfg.attn_impl``, the MoE ``cfg.moe_impl``."""
-    x, aux = _hidden(params, cfg, tokens, compute_dtype=compute_dtype,
-                     remat=remat)
+def forward(params, cfg: ArchConfig, tokens, *, context=None,
+            compute_dtype=torch.bfloat16, remat=True):
+    """tokens: (B, S); ``context``: the stub frontend's embeddings (B, N,
+    D) of the audio and vision archs.  Returns (logits (B, S,
+    padded_vocab), moe_aux).  The attention follows ``cfg.attn_impl``,
+    the MoE ``cfg.moe_impl``."""
+    x, aux = _hidden(params, cfg, tokens, context=context,
+                     compute_dtype=compute_dtype, remat=remat)
     return _logits(params, cfg, x, compute_dtype), aux
 
 
@@ -380,14 +559,15 @@ def _chunk_nll(x_c, y_c, head, final_softcap):
 def loss_fn(params, cfg: ArchConfig, batch, *, compute_dtype=torch.bfloat16,
             remat=True):
     """Mean token cross-entropy of ``batch`` ({"tokens", "labels"}, (B, S)
-    integer tensors; labels < 0 are ignored), plus
-    ``MOE_AUX_COEF · aux / num_layers`` for MoE archs.  The head runs over
-    chunks of ``LOSS_CHUNK`` positions (when S is a multiple above it),
-    each checkpointed so its (B, chunk, vocab) logits are recomputed in
-    the backward pass instead of kept.  The attention follows
-    ``cfg.attn_impl``, the MoE ``cfg.moe_impl``."""
-    x, aux = _hidden(params, cfg, batch["tokens"], compute_dtype=compute_dtype,
-                     remat=remat)
+    integer tensors; labels < 0 are ignored; and "context" for the audio
+    and vision archs), plus ``MOE_AUX_COEF · aux / num_layers`` for MoE
+    archs.  The head runs over chunks of ``LOSS_CHUNK`` positions (when S
+    is a multiple above it), each checkpointed so its (B, chunk, vocab)
+    logits are recomputed in the backward pass instead of kept.  The
+    attention follows ``cfg.attn_impl``, the MoE ``cfg.moe_impl``."""
+    x, aux = _hidden(params, cfg, batch["tokens"],
+                     context=batch.get("context"),
+                     compute_dtype=compute_dtype, remat=remat)
     head = _head_weight(params, cfg, compute_dtype)
     labels = batch["labels"]
     S = x.shape[1]
@@ -410,12 +590,18 @@ def decode_step(params, cfg: ArchConfig, token, cache, index=0, *,
     """One serve step: token (B, 1) int32 at position ``index`` against
     ``cache``.  Returns (logits (B, 1, padded_vocab), cache).
 
-    For a paged cache ``index`` is ignored: per-sequence positions come
-    from ``cache["length"]`` and only ``cache["active"]`` slots advance —
-    inactive slots compute but write the pool's scratch page.  ``impl``
-    picks the paged attention path (``kernels.ops``)."""
+    For a paged cache the self-attention ignores ``index``: per-sequence
+    positions come from ``cache["length"]`` and only ``cache["active"]``
+    slots advance — inactive slots compute but write the pool's scratch
+    page (their recurrent states and shift registers step too; a prefill
+    overwrites them at the next admission).  ``impl`` picks the paged
+    attention path (``kernels.ops``)."""
     paged = isinstance(cache, dict)
     x = _embed(params, cfg, token, compute_dtype)
+    if cfg.pos_embed == "learned":
+        pos = (params["pos"][cache["length"].long()][:, None] if paged
+               else params["pos"][index][None, None])
+        x = x + pos.to(compute_dtype)
     layers = cache["layers"] if paged else cache
     pctx = ((cache["page_table"], cache["length"], cache["active"])
             if paged else None)
@@ -423,8 +609,8 @@ def decode_step(params, cfg: ArchConfig, token, cache, index=0, *,
         p_r = _layer_views(params["blocks"], r)
         c_r = _layer_views(layers, r)
         for j, spec in enumerate(cfg.pattern):
-            x, _ = _decode_layer(cfg, spec, p_r[j], x, c_r[j], index,
-                                 paged=pctx, impl=impl)
+            x = _decode_layer(cfg, spec, p_r[j], x, c_r[j], index,
+                              paged=pctx, impl=impl)
     logits = _head(params, cfg, x, compute_dtype)
     if paged:
         cache = {**cache,
@@ -456,19 +642,44 @@ def _dense_prefill_write(cache, k, v, positions, lengths):
 
 def _prefill_layer(cfg, spec: LayerSpec, p, x, cache, positions, lengths,
                    table):
-    """One prefill layer: forward + fill this layer's decode cache."""
+    """One prefill layer: forward + fill this layer's decode cache (in
+    place).  Cross-attention attends the cache's ``ck``/``cv``."""
     p = _cast(p, x.dtype)
     h = _norm(cfg, p["norm1"], x)
-    y, k, v = attn_mod.prefill_attention(p["mixer"], h, _attn_spec(cfg, spec),
-                                         positions=positions, lengths=lengths)
-    if table is not None:
-        paged_k.paged_write_prefill(cache["kp"], cache["vp"], k, v, table,
-                                    lengths)
+    if spec.mixer in ("attn", "attn+cross"):
+        y, k, v = attn_mod.prefill_attention(
+            p["mixer"], h, _attn_spec(cfg, spec), positions=positions,
+            lengths=lengths)
+        if table is not None:
+            paged_k.paged_write_prefill(cache["kp"], cache["vp"], k, v, table,
+                                        lengths)
+        else:
+            _dense_prefill_write(cache, k, v, positions, lengths)
+        if spec.mixer == "attn+cross":
+            if spec.post_norm:
+                y = _norm(cfg, p["norm_post1"], y)
+            x = x + y
+            h = _norm(cfg, p["norm_cross"], x)
+            y = attn_mod.attention_with_kv(
+                p["cross"], h, cache["ck"], cache["cv"],
+                _cross_spec(cfg, spec), positions=positions)
+    elif spec.mixer == "cross_attn":
+        y = attn_mod.attention_with_kv(p["mixer"], h, cache["ck"],
+                                       cache["cv"], _cross_spec(cfg, spec),
+                                       positions=positions)
+    elif spec.mixer == "mamba":
+        y, state = mamba_mod.mamba(p["mixer"], h, d_state=cfg.mamba_d_state,
+                                   d_conv=cfg.mamba_d_conv,
+                                   return_state=True)
+        _copy_state(cache, state)
     else:
-        _dense_prefill_write(cache, k, v, positions, lengths)
-    if spec.post_norm:
+        y, state = rwkv_mod.time_mix(p["mixer"], h,
+                                     head_size=cfg.rwkv_head_size,
+                                     return_state=True)
+        _copy_state(cache, state)
+    if spec.post_norm and spec.mixer != "attn+cross":
         y = _norm(cfg, p["norm_post1"], y)
-    return _ffn_block(cfg, spec, p, x + y)[0]
+    return _ffn_block(cfg, spec, p, x + y, mode="prefill", cache=cache)[0]
 
 
 def prefill(params, cfg: ArchConfig, tokens, cache, *, lengths=None,
@@ -477,13 +688,19 @@ def prefill(params, cfg: ArchConfig, tokens, cache, *, lengths=None,
 
     tokens: (B, S) int32, right-padded when ``lengths (B,)`` is given —
     sample the first generated token from ``logits[b, lengths[b]-1]``.
-    The causal attention follows ``cfg.attn_impl``.
+    The causal attention follows ``cfg.attn_impl``.  Attention layers
+    mask padded keys exactly; recurrent mixers (Mamba / RWKV) fold the
+    whole padded window into their state, so ragged ``lengths`` is only
+    right for attention archs — prefill recurrent archs at their exact
+    prompt length (``serve_continuous`` admits each sequence unpadded).
     Returns (logits (B, S, padded_vocab), cache)."""
     paged = isinstance(cache, dict)
     B, S = tokens.shape
     dev = tokens.device
     x = _embed(params, cfg, tokens, compute_dtype)
-    positions = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+    if cfg.pos_embed == "learned":
+        x = x + params["pos"][:S].to(compute_dtype)
+    positions = _arange_positions(B, S, dev)
     lens = (torch.full((B,), S, dtype=torch.int32, device=dev)
             if lengths is None
             else torch.as_tensor(lengths, dtype=torch.int32, device=dev))
@@ -571,9 +788,15 @@ def decode_loop(params, cfg: ArchConfig, token, cache, index, steps: int, *,
 def slot_cache(cache, slot: int):
     """One batch slot's view of a paged cache (B=1), for per-admission
     prefill: the pools (``kp``/``vp``) are shared whole, so a prefill on
-    the view writes the slot's pages in place."""
+    the view writes the slot's pages in place; per-slot state (recurrent
+    mixers, cross k/v) is a view of the slot's row, so the prefill writes
+    it in place too."""
+    def per_layer(d):
+        return {k: (v if k in _POOL_KEYS else v[:, slot:slot + 1])
+                for k, v in d.items()}
+
     return {
-        "layers": cache["layers"],
+        "layers": tuple(per_layer(d) for d in cache["layers"]),
         "page_table": cache["page_table"][slot:slot + 1],
         "length": cache["length"][slot:slot + 1],
         "active": torch.ones(1, dtype=torch.bool,
@@ -583,8 +806,9 @@ def slot_cache(cache, slot: int):
 
 def merge_slot_cache(cache, sub, slot: int):
     """Merge a :func:`slot_cache` view updated by :func:`prefill` back
-    into the full paged cache: the pools were written in place, so only
-    the slot's length moves."""
+    into the full paged cache: the pools and the slot's state were
+    written in place through the view, so only the slot's length
+    moves."""
     length = cache["length"].clone()
     length[slot] = sub["length"][0]
     return {**cache, "length": length}

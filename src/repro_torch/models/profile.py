@@ -119,8 +119,8 @@ def profile_arch(arch, fleet, *, seq: int = 4096,
                  kv_cache_len: int | None = None,
                  kv_page_size: int | None = None) -> list[LayerProfile]:
     """Layer profiles of ``arch`` (an arch id, resolved by
-    :func:`repro_torch.configs.get_config` — an arch not ported yet raises
-    there — or an :class:`ArchConfig`) over ``fleet``.
+    :func:`repro_torch.configs.get_config`, or an :class:`ArchConfig`)
+    over ``fleet``.
 
     ``decode_kv_len`` switches the attention rows to decode-mode KV
     accounting: each token reads the cache — the whole ``kv_cache_len``

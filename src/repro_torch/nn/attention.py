@@ -1,8 +1,10 @@
 """GQA attention with RoPE, sliding window and logit soft-capping:
-full-sequence attention (training), prefill, the dense ring-buffer decode
-(the oracle) and paged decode (port of ``repro.nn.attention``).
+full-sequence self- and cross-attention (training, encoder), prefill,
+cross-attention over precomputed k/v, the dense ring-buffer decode (the
+oracle, and the cross decode) and paged decode (port of
+``repro.nn.attention``).
 
-Full-sequence and causal prefill attention go through
+Full-sequence, cross and causal prefill attention go through
 ``kernels.ops.flash_attention`` (the Hopper flash kernels, forward and
 backward, for CUDA tensors), where the reference runs jnp
 ``_sdpa_direct`` / ``_sdpa_blockwise``; those two stay here as the
@@ -165,26 +167,30 @@ def _project_qkv(p, x, kv_x, spec: AttnSpec, q_pos, k_pos):
     return q, _expand_kv(k, H), _expand_kv(v, H)
 
 
-def attention(p, x, spec: AttnSpec, *, positions):
-    """Full-sequence self-attention (training / forward).  x: (B, S, D);
-    positions: (B, S) int32.  Returns (B, S, D).
+def attention(p, x, spec: AttnSpec, *, positions, kv_x=None,
+              kv_positions=None):
+    """Full-sequence attention (training / forward / encoder).  x: (B, Sq,
+    D); ``kv_x``: a cross-attention source (B, Sk, Dkv) or None;
+    positions: (B, Sq) int32.  Returns (B, Sq, D).
 
     The attention runs in :func:`kernels.ops.flash_attention` on
     (B, H, S, hd) views (``spec.impl``: ``auto`` = the CUDA kernels for
     CUDA tensors and the plain version for CPU tensors, ``ref``, ``cuda``).
     The kernel masks by *index* where the reference masks by
-    ``positions``; the two agree because every caller passes
-    ``positions = arange(S)`` (``models.decoder._hidden`` builds them so,
-    as the reference's does).  Nothing checks it here: a check would sync
-    the host every layer.  Cross-attention waits for the encoder archs
-    (ROADMAP.md queue 1 item 10)."""
-    B, S, _ = x.shape
-    q, k, v = _project_qkv(p, x, x, spec, positions, positions)
+    ``positions`` / ``kv_positions``; the two agree because every caller
+    passes ``arange`` positions (``models.decoder`` builds them so, as the
+    reference's does).  Nothing checks it here: a check would sync the
+    host every layer.  The decoder's cross-attention passes a non-causal
+    spec (every context frame is attended; ROADMAP.md R7)."""
+    B, Sq, _ = x.shape
+    self_attn = kv_x is None
+    q, k, v = _project_qkv(p, x, x if self_attn else kv_x, spec, positions,
+                           positions if self_attn else kv_positions)
     o = kernel_ops.flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         causal=spec.causal, window=spec.window,
         softcap=spec.logit_softcap, impl=spec.impl).transpose(1, 2)
-    return o.reshape(B, S, spec.n_heads * spec.head_dim) @ p["wo"]
+    return o.reshape(B, Sq, spec.n_heads * spec.head_dim) @ p["wo"]
 
 
 # --------------------------------------------------------------------------
@@ -244,6 +250,24 @@ def prefill_attention(p, x, spec: AttnSpec, *, positions, lengths=None):
     return o.reshape(B, S, H * hd) @ p["wo"], k, v
 
 
+def attention_with_kv(p, x, k, v, spec: AttnSpec, *, positions):
+    """Cross-attention over precomputed (projected, unexpanded) k/v
+    (B, Sk, KV, hd): the full-sequence analogue of
+    ``decode_attention(cross=True)``.  q is normed and roped at
+    ``positions``; every key is attended (non-causal, no window), through
+    :func:`kernels.ops.flash_attention` (``spec.impl``)."""
+    B, S, _ = x.shape
+    H = spec.n_heads
+    q = _project_q(p, x, spec, positions)
+    k = _expand_kv(k.to(q.dtype), H)
+    v = _expand_kv(v.to(q.dtype), H)
+    o = kernel_ops.flash_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=False, window=None,
+        softcap=spec.logit_softcap, impl=spec.impl).transpose(1, 2)
+    return o.reshape(B, S, H * spec.head_dim) @ p["wo"]
+
+
 # --------------------------------------------------------------------------
 # dense ring-buffer decode (the oracle)
 # --------------------------------------------------------------------------
@@ -279,27 +303,42 @@ def _decode_qkv(p, x, q_pos, spec: AttnSpec):
     return q[:, 0], k_new[:, 0], v_new[:, 0]
 
 
-def decode_attention(p, x, cache, index: int, spec: AttnSpec):
+def decode_attention(p, x, cache, index, spec: AttnSpec, *,
+                     cross: bool = False):
     """One-token decode against a dense ring buffer. x: (B, 1, D);
     ``cache['k']``: (B, L, KV, hd); ``index``: the new token's position
     (one for the whole batch).
 
     The new token writes slot ``index % L`` in place and ``cache['pos']``
-    records true positions for masking.  Returns (out (B, 1, D), cache).
+    records true positions for masking.  Cross-attention (``cross=True``)
+    reads a fixed cache ``{"k", "v"}`` of context keys, attends every one
+    and writes nothing; its ``index`` may also be a (B,) tensor of
+    per-sequence positions (the paged decode passes its ``q_pos``).
+    Returns (out (B, 1, D), cache).
     """
     B = x.shape[0]
     H, KV, hd = spec.n_heads, spec.n_kv_heads, spec.head_dim
-    q_pos = torch.full((B, 1), index, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _decode_qkv(p, x, q_pos, spec)
-    L = cache["k"].shape[1]
-    slot = index % L
-    cache["k"][:, slot] = k_new.to(cache["k"].dtype)
-    cache["v"][:, slot] = v_new.to(cache["v"].dtype)
-    cache["pos"][:, slot] = index
-    k, v, k_pos = cache["k"], cache["v"], cache["pos"]
-    valid = (k_pos >= 0) & (k_pos <= index)
-    if spec.window is not None:
-        valid &= k_pos > index - spec.window
+    if cross:
+        q_pos = None                    # read only by rope
+        if spec.rope:
+            q_pos = torch.as_tensor(index, dtype=torch.int32,
+                                    device=x.device).reshape(-1, 1)
+            q_pos = q_pos.expand(B, 1)
+        q = _project_q(p, x, spec, q_pos)[:, 0]
+        k, v = cache["k"], cache["v"]
+        valid = None
+    else:
+        q_pos = torch.full((B, 1), index, dtype=torch.int32, device=x.device)
+        q, k_new, v_new = _decode_qkv(p, x, q_pos, spec)
+        L = cache["k"].shape[1]
+        slot = index % L
+        cache["k"][:, slot] = k_new.to(cache["k"].dtype)
+        cache["v"][:, slot] = v_new.to(cache["v"].dtype)
+        cache["pos"][:, slot] = index
+        k, v, k_pos = cache["k"], cache["v"], cache["pos"]
+        valid = (k_pos >= 0) & (k_pos <= index)
+        if spec.window is not None:
+            valid &= k_pos > index - spec.window
     # grouped GQA at decode: q-len is 1, so the (KV, G) form needs no
     # KV expansion
     scale = 1.0 / math.sqrt(hd)
@@ -309,7 +348,8 @@ def decode_attention(p, x, cache, index: int, spec: AttnSpec):
                           k.to(q.dtype)).float() * scale
     if spec.logit_softcap:
         logits = softcap(logits, spec.logit_softcap)
-    logits = torch.where(valid[:, None, None, None, :], logits, NEG_INF)
+    if valid is not None:
+        logits = torch.where(valid[:, None, None, None, :], logits, NEG_INF)
     w = torch.softmax(logits, dim=-1).to(q.dtype)
     o = torch.einsum("bkgqs,bskd->bqkgd", w, v.to(q.dtype)).reshape(
         B, 1, H * hd)

@@ -6,7 +6,7 @@ import pytest
 
 from repro.configs import get_config as jget
 from repro.models import config as jconfig
-from repro_torch.configs import _PENDING, ARCH_IDS, get_config as tget
+from repro_torch.configs import ARCH_IDS, get_config as tget
 from repro_torch.kernels import flash_attention as flash_k
 from repro_torch.kernels import paged_attention as paged_k
 from repro_torch.models import config as tconfig
@@ -113,10 +113,56 @@ def test_dense_full_width_numbers(arch):
             c.pattern[0].post_norm) == DENSE_NUMBERS[arch]
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a not in PORTED])
-def test_unported_arch_names_its_queue_item(arch):
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tget(arch)
+MIXER_ARCHS = ("rwkv6-7b", "jamba-v0.1-52b", "llama-3.2-vision-11b",
+               "whisper-large-v3")
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("arch", MIXER_ARCHS)
+def test_mixer_config_equals_reference(arch, reduced):
+    t = tget(arch, reduced=reduced)
+    j = jget(arch, reduced=reduced)
+    assert dataclasses.asdict(t) == _reference_dict(j)
+    assert (t.num_layers, t.padded_vocab, t.has_moe, t.source) == \
+        (j.num_layers, j.padded_vocab, j.has_moe, j.source)
+
+
+#: (layers, d_model, heads, KV heads, head dim, d_ff, vocab, the
+#: pattern's mixers and FFNs, positions, norm, tied, experts / top-k,
+#: Mamba (d_state, d_conv, expand), RWKV head size, encoder (layers,
+#: frames), cross_kv_len) of the full-width configs
+MIXER_NUMBERS = {
+    "rwkv6-7b": (32, 4096, 64, 64, 64, 14336, 65536, (("rwkv",
+                 "channel_mix"),), "none", "rms", False, (0, 0),
+                 (16, 4, 2), 64, None, 0),
+    "jamba-v0.1-52b": (32, 4096, 32, 8, 128, 14336, 65536,
+                       tuple(("attn" if i == 3 else "mamba",
+                              "moe" if i % 2 else "dense")
+                             for i in range(8)), "none", "rms", False,
+                       (16, 2), (16, 4, 2), 64, None, 0),
+    "llama-3.2-vision-11b": (40, 4096, 32, 8, 128, 14336, 128256,
+                             (("attn", "dense"),) * 4
+                             + (("cross_attn", "dense"),), "rope", "rms",
+                             False, (0, 0), (16, 4, 2), 64, None, 1601),
+    "whisper-large-v3": (32, 1280, 20, 20, 64, 5120, 51866,
+                         (("attn+cross", "dense"),), "learned", "ln", True,
+                         (0, 0), (16, 4, 2), 64, (32, 1500), 1500),
+}
+
+
+@pytest.mark.parametrize("arch", MIXER_ARCHS)
+def test_mixer_full_width_numbers(arch):
+    """The four archs of the recurrent and encoder mixers at full width
+    (jamba-v0.1-52b: 4 repeats of its 8-layer period, MoE on every second
+    layer; llama-3.2-vision-11b: every fifth layer cross-attention)."""
+    c = tget(arch)
+    enc = (c.encoder.num_layers, c.encoder.frames) if c.encoder else None
+    assert (c.num_layers, c.d_model, c.n_heads, c.n_kv_heads, c.head_dim,
+            c.d_ff, c.vocab, tuple((s.mixer, s.ffn) for s in c.pattern),
+            c.pos_embed, c.norm, c.tie_embeddings,
+            (c.moe_experts, c.moe_top_k),
+            (c.mamba_d_state, c.mamba_d_conv, c.mamba_expand),
+            c.rwkv_head_size, enc, c.cross_kv_len) == MIXER_NUMBERS[arch]
 
 
 def test_unknown_arch_raises_key_error():
@@ -131,7 +177,7 @@ def test_validate_raises_on_bad_heads():
 
 
 @pytest.mark.parametrize("reduced", [False, True])
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a not in _PENDING])
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_every_ported_head_dim_has_its_kernels(arch, reduced):
     """Prefill and training attention on the card go through the flash
     kernels and decode through paged decode, neither with a fallback: a

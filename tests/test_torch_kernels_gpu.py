@@ -94,19 +94,26 @@ ARCH_DECODE_CASES = [
     (4, 4, 2, 256, 291, 4096, 50.0, [4639, 551, 300, 76], torch.float32),
     (4, 8, 6, 128, 35, None, None, [76, 200, 350, 551], torch.bfloat16),
     (4, 4, 8, 128, 35, None, None, [76, 200, 350, 551], torch.bfloat16),
+    (4, 8, 4, 128, 35, None, None, [76, 200, 350, 551], torch.bfloat16),
+    (4, 8, 4, 128, 35, None, None, [76, 200, 350, 551], torch.float32),
+    (4, 20, 1, 64, 35, None, None, [76, 200, 350, 551], torch.float32),
 ]
 
 
 @pytest.mark.parametrize("B,KV,G,hd,P,window,sc,q_pos,dtype",
                          ARCH_DECODE_CASES,
-                         ids=["chatglm3", "gemma2", "internlm2", "qwen3-moe"])
+                         ids=["chatglm3", "gemma2", "internlm2", "qwen3-moe",
+                              "jamba", "llama-vision", "whisper"])
 def test_paged_decode_at_the_served_archs_decode_shapes(cuda, B, KV, G, hd,
                                                         P, window, sc, q_pos,
                                                         dtype):
     """chatglm3-6b (G 16) and gemma2-2b (G 2, hd 256, a sequence past its
     window of 4,096, soft cap 50) in float32, internlm2-20b (G 6) and
-    qwen3-moe-30b-a3b (G 8) in bfloat16: against the gather (float32
-    atol 2e-5, bfloat16 2e-2) and bit-equal over two calls."""
+    qwen3-moe-30b-a3b (G 8) in bfloat16, jamba-v0.1-52b's attention
+    layers (G 4) in bfloat16, llama-3.2-vision-11b's (G 4) and
+    whisper-large-v3's decoder (KV 20, G 1, hd 64) in float32: against
+    the gather (float32 atol 2e-5, bfloat16 2e-2) and bit-equal over two
+    calls."""
     args = _split_inputs(B, KV, G, hd, 16, P, q_pos, dtype, cuda)
     got = pk.paged_decode_cuda(*args, window=window, softcap=sc)
     again = pk.paged_decode_cuda(*args, window=window, softcap=sc)
@@ -219,6 +226,8 @@ MOE_CASES = [
     (1, 512, 2048, 64, 8, 1.25),      # OLMoE 512-token prefill: C 80
     (4, 1, 2048, 128, 8, 1.25),       # qwen3-moe decode: C 8
     (1, 512, 2048, 128, 8, 1.25),     # qwen3-moe 512-token prefill: C 40
+    (4, 1, 4096, 16, 2, 1.25),        # jamba decode: C 8
+    (1, 512, 4096, 16, 2, 1.25),      # jamba 512-token prefill: C 80
 ]
 MOE_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 
@@ -611,8 +620,10 @@ def test_moe_functions_bf16_gradients_match_slot_autograd(cuda, G, S, E):
 
 #: B, H, Sq, Sk, hd, causal, window, softcap: the reference sweep
 #: (tests/test_kernels.py), partial tiles, llama3.2-1b's training shape cut
-#: to one microbatch row and 4 heads, and head dim 32 (the reduced
-#: llama3.2-1b's shape, and ragged with every mask)
+#: to one microbatch row and 4 heads, head dim 32 (the reduced
+#: llama3.2-1b's shape, and ragged with every mask), and the encoder and
+#: cross-attention shapes of whisper-large-v3 and llama-3.2-vision-11b
+#: (non-causal over 1,500 frames; 512 queries over 1,500 / 1,601 keys)
 FLASH_CASES = [
     (1, 1, 128, 128, 64, True, None, None),
     (2, 2, 256, 256, 64, True, None, None),
@@ -634,6 +645,9 @@ FLASH_CASES = [
     (1, 2, 200, 200, 32, True, 16, 30.0),          # hd 32, ragged, all masks
     (1, 16, 2048, 2048, 128, True, None, None),    # olmoe / chatglm3 training
     (1, 8, 4608, 4608, 256, True, 4096, 50.0),     # gemma2 past its window
+    (4, 20, 1500, 1500, 64, False, None, None),    # whisper encoder
+    (4, 20, 512, 1500, 64, False, None, None),     # whisper cross
+    (4, 32, 512, 1601, 128, False, None, None),    # llama-vision cross
 ]
 FLASH_FWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 FLASH_BWD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (5e-2, 1.6e-2)}

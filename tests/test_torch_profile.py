@@ -2,9 +2,8 @@
 every field of every layer profile at rtol 1e-12 (the cost model's NumPy
 sums in another order, ROADMAP R2), with the training, dense-decode and
 paged-decode KV accounting, on the paper's fleet and on a 32-type fleet.
-Every reference config is checked through the port's schema (the
-recurrent, hybrid and encoder archs too: ``profile_arch`` takes an
-``ArchConfig``); the ported archs also by id."""
+Every reference config is checked through the port's schema and by id
+(the port's own config of the same name)."""
 
 import dataclasses
 
@@ -15,7 +14,7 @@ from repro.configs import ARCH_IDS
 from repro.configs import get_config as jget
 from repro.core import resources as jres
 from repro.models.profile import profile_arch as jprofile
-from repro_torch.configs import _PENDING
+from repro_torch.configs import get_config as tget
 from repro_torch.core import resources as tres
 from repro_torch.models import config as tconfig
 from repro_torch.models.profile import profile_arch as tprofile
@@ -59,14 +58,22 @@ def test_profile_arch_matches_reference(arch, fleet, mode):
     jcfg = jget(arch)
     want = jprofile(jcfg, jf, **kw)
     _assert_profiles_equal(tprofile(_port_config(jcfg), tf, **kw), want)
-    if arch not in _PENDING:
-        _assert_profiles_equal(tprofile(arch, tf, **kw), want)
+    _assert_profiles_equal(tprofile(arch, tf, **kw), want)
 
 
-@pytest.mark.parametrize("arch", sorted(_PENDING))
-def test_profile_arch_raises_for_an_unported_id(arch):
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tprofile(arch, tres.default_fleet())
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "llama-3.2-vision-11b",
+                                  "rwkv6-7b", "whisper-large-v3"])
+def test_profile_arch_takes_the_mixer_archs_by_id(arch):
+    """The recurrent, hybrid, vision and audio archs by id, with the
+    defaults of both packages, reduced and full: the port's own configs
+    give the reference's profiles."""
+    fleet_j, fleet_t = FLEETS["paper"]
+    for reduced in (False, True):
+        want = jprofile(jget(arch, reduced=reduced), fleet_j)
+        got = tprofile(tget(arch, reduced=reduced), fleet_t)
+        _assert_profiles_equal(got, want)
+    _assert_profiles_equal(tprofile(arch, fleet_t),
+                           jprofile(jget(arch), fleet_j))
 
 
 def test_decode_accounting_moves_only_the_attention_rows():

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import signal
 import subprocess
 import sys
@@ -621,6 +622,30 @@ def reference_replans_with_greedy(monkeypatch):
                         factory(config, scheduler=GreedyScheduler(), **kw))
 
 
+@pytest.fixture
+def no_bandwidth_verdicts(monkeypatch):
+    """Both packages' ``ctr_replan_factory`` with ``min_traffic_s=inf``:
+    no window gets a bandwidth verdict.  The windowed bandwidths are PS
+    bytes over the host-timed pull and push seconds, so under a loaded
+    host a window can read more than 6x its calibration window's rate
+    and add ``net_bw`` to the kill's drift reasons in one package and
+    not the other, whatever ``bw_tolerance``; the kill's edge (fleet
+    events) is the signal under test.  Apply after
+    ``reference_replans_with_greedy``."""
+    from repro.core import replan as jrp
+    from repro_torch.core import replan as trp
+
+    for mod in (jrp, trp):
+        factory = mod.ctr_replan_factory
+
+        def parked(config=None, *, _factory=factory, _mod=mod, **kw):
+            config = dataclasses.replace(config or _mod.ReplanConfig(),
+                                         min_traffic_s=math.inf)
+            return _factory(config, **kw)
+
+        monkeypatch.setattr(mod, "ctr_replan_factory", parked)
+
+
 def _assert_same_elastic_run(out, ref):
     """What an elastic run's summary must share with the reference's from
     the same options (the initial tables differ: each package draws its
@@ -648,7 +673,7 @@ def _assert_same_elastic_run(out, ref):
 
 @pytest.mark.parametrize("case", sorted(ELASTIC_OPTIONS))
 def test_elastic_options_follow_the_reference(
-        case, tmp_path, reference_replans_with_greedy):
+        case, tmp_path, reference_replans_with_greedy, no_bandwidth_verdicts):
     """Each elastic option of ``train_sparse_ps`` on the CPU against the
     reference's ``train_sparse_ps`` with the same option.  The port's
     ``--replan`` runs its default search (on the CPU here)."""
@@ -662,8 +687,9 @@ def test_elastic_options_follow_the_reference(
         jkw["ckpt_dir"] = str(tmp_path / "ref")
         tkw["ckpt_dir"] = str(tmp_path / "port")
     if case == "replan":
-        # bandwidth drift is parked out of reach: it follows host timing
-        # noise, and the kill's edge is the signal under test
+        # bandwidth drift is parked out of reach (no_bandwidth_verdicts):
+        # it follows host timing noise, and the kill's edge is the signal
+        # under test
         jkw["replan"] = JReplanConfig(window_steps=5, bw_tolerance=5.0)
         tkw["replan"] = ReplanConfig(window_steps=5, bw_tolerance=5.0)
     ref = jtrain.train_sparse_ps(**jkw)
@@ -694,7 +720,8 @@ ELASTIC_FLAGS = [
 @pytest.mark.parametrize("flags", ELASTIC_FLAGS,
                          ids=lambda f: f[0].lstrip("-"))
 def test_elastic_flags_follow_the_reference(
-        flags, tmp_path, capsys, monkeypatch, reference_replans_with_greedy):
+        flags, tmp_path, capsys, monkeypatch, reference_replans_with_greedy,
+        no_bandwidth_verdicts):
     """``python -m repro_torch.launch.train --sparse-ps --device cpu``
     with each elastic flag against the reference's CLI with the same
     flags: the two JSON summaries agree."""

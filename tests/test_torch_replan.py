@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import threading
 import time
 
@@ -399,6 +400,12 @@ def test_train_replan_flags_parse():
 
 #: the reference's CTR pin config (tests/test_ps_elastic.py)
 CTR_SMALL = dict(vocab=5_000, emb_dim=8, slots=8, tower=(32,), batch=64)
+#: a job sized to these runs (ROADMAP.md R5's least change): the paper's
+#: 200,000 examples/s leave every plan infeasible (cost inf) or not by
+#: the window's host timing, and with it whether a drift re-plan applies;
+#: at 1,000 examples/s, the order of a 30-step CPU run's own rate, every
+#: plan stays feasible
+CTR_SMALL_JOB = 1_000.0
 
 
 @pytest.mark.parametrize("optimizer,mode", [("sgd", "sync"),
@@ -409,7 +416,12 @@ def test_train_with_the_replanner_follows_the_reference(optimizer, mode):
     reference's table and tower, ``Greedy`` on both sides: losses within
     1e-4 in sync mode, and in both modes the same windows, calibration
     and drift considerations (the shard kill's edge; bandwidth drift is
-    parked out of reach, it follows host timing noise)."""
+    parked out of reach, ``min_traffic_s=inf`` gives no window a
+    bandwidth verdict: the windowed bandwidths follow the host's timing
+    of the pulls and pushes, and a loaded host read more than 6x the
+    calibration window's rate in one package and not the other; the job
+    is sized to the run, CTR_SMALL_JOB, so that no plan's feasibility
+    turns on that timing)."""
     from repro.ps import workload as jw
     from repro_torch.ps import workload as tw
 
@@ -419,8 +431,10 @@ def test_train_with_the_replanner_follows_the_reference(optimizer, mode):
     kw = dict(steps=30, num_shards=3, optimizer=optimizer, mode=mode,
               events=[(20, "kill", 0)])
     ref = jw.train_ctr_elastic(jcfg, **kw, replan=jrp.ctr_replan_factory(
-        jrp.ReplanConfig(window_steps=5, bw_tolerance=5.0),
-        scheduler=JGreedy()))
+        jrp.ReplanConfig(window_steps=5, bw_tolerance=5.0,
+                         min_traffic_s=math.inf),
+        scheduler=JGreedy(),
+        job=jcm.TrainingJob(throughput_limit=CTR_SMALL_JOB)))
     dense = np.asarray(jax.random.normal(
         jax.random.PRNGKey(jcfg.seed), (jcfg.vocab, jcfg.emb_dim))
         * 0.05, np.float32)
@@ -430,8 +444,10 @@ def test_train_with_the_replanner_follows_the_reference(optimizer, mode):
         cfg, **kw, device="cpu", dense=dense,
         tower=tw.tower_from_numpy(tower, cfg, device="cpu"),
         replan=trp.ctr_replan_factory(
-            trp.ReplanConfig(window_steps=5, bw_tolerance=5.0),
-            scheduler=TGreedy(), device="cpu"))
+            trp.ReplanConfig(window_steps=5, bw_tolerance=5.0,
+                             min_traffic_s=math.inf),
+            scheduler=TGreedy(), device="cpu",
+            job=tcm.TrainingJob(throughput_limit=CTR_SMALL_JOB)))
     if mode == "sync":
         np.testing.assert_allclose(out["losses"], ref["losses"], rtol=0,
                                    atol=1e-4)
