@@ -181,7 +181,28 @@ result lines:
              full-width ``loss_fn`` with gradients of each (whisper-large-v3
              with 2 encoder layers over 1,500 frames, llama-3.2-vision-11b
              over 1,601 patches, jamba-v0.1-52b in bfloat16) through the
-             kernels against the plain versions, rwkv6-7b against the CPU.
+             kernels against the plain versions, rwkv6-7b against the CPU;
+18. mesh   — the multi-device layer on a 1x1 (data, model) mesh over NCCL
+             (world size 1: NCCL refuses two ranks on one card, so the
+             2x2 mesh and the 4-stage pipeline are held on the CPU over
+             gloo by the tests): phase 8's run again with the parameters
+             and AdamW state as DTensors laid out by ``param_specs`` and
+             the batches placed by ``shard_batch``, 3 steps under
+             ``use_mesh`` (the flash kernels through ``local_map``,
+             launches counted) against phase 8's losses and grad norms
+             (bit-equal, else within 1e-5 relative), then one profiled
+             sharded step beside phase 10's; a 2-layer full-width
+             olmoe-1b-7b ``loss_fn`` with gradients on the mesh (the MoE
+             kernels through ``local_map``) against the same unsharded;
+             full-width llama3.2-1b ``make_prefill_step`` and
+             ``make_serve_step`` (a dense cache laid out by
+             ``cache_specs``) against the unsharded steps; a 1-stage
+             ``pipeline_loss`` over NCCL against the stage function's own
+             gradient; and the dry run of llama3.2-1b ``decode_32k`` and
+             ``prefill_32k`` on the 16x16 fake-backend mesh with device
+             type ``cuda`` (per-device memory, FLOPs, collective bytes,
+             H100 roofline terms; the prefill's graph holds the flash
+             kernel's custom op).
 
 The scheduler and the elastic fleet have no TPU kernel in the reference
 (``jnp`` under ``jit``; no hot cache on the elastic path), so phases 13-15
@@ -3668,6 +3689,350 @@ def phase_mixer_teacher(torch, counters):
     return by_arch
 
 
+# --------------------------------------------------------------------------
+# phase 18: the multi-device layer on a 1x1 mesh over NCCL
+# --------------------------------------------------------------------------
+
+#: phase 18's runs: the 2-layer OLMoE loss (batch, sequence), the prefill
+#: and decode steps (batch, prompt, cache length), the 1-stage pipeline
+#: (microbatches, rows, width)
+MESH_MOE = (2, 512)
+MESH_SERVE = (2, 512, 1024)
+MESH_PIPE = (8, 16, 2048)
+#: the bound phase 18 holds a mesh run to when it is not bit-equal to the
+#: unsharded one: phase 9's (the loss to 1e-5 relative, each gradient leaf
+#: or logit tensor to 1e-3 of its largest entry)
+MESH_LOSS_RTOL, MESH_LEAF_RTOL = 1e-5, 1e-3
+
+
+def _gap(torch, a, b) -> float:
+    """max|a - b| / max|b| of two tensors (a DTensor is gathered)."""
+    from torch.distributed.tensor import DTensor
+
+    a = a.full_tensor() if isinstance(a, DTensor) else a
+    b = b.full_tensor() if isinstance(b, DTensor) else b
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max().clamp_min(1e-30)).item()
+
+
+def _held(torch, label, pairs, rtol) -> dict:
+    """Bit-equality, else the worst relative gap, of (mesh, plain) pairs;
+    fails past ``rtol``."""
+    equal = all(torch.equal(_plain(a), _plain(b)) for a, b in pairs)
+    worst = 0.0 if equal else max(_gap(torch, a, b) for a, b in pairs)
+    check(equal or worst <= rtol, f"mesh: {label} off by {worst:.3e} of its "
+          f"largest entry (> {rtol})")
+    return {"bit_equal": equal, "worst_rel": worst}
+
+
+def _plain(t):
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def mesh_train(torch, counters, mesh, train_out, train_prof):
+    """Phase 8's run on the mesh: llama3.2-1b at full width and depth,
+    float32, the parameters and AdamW state laid out by ``param_specs``,
+    phase 8's batches placed by ``shard_batch``, three ``make_train_step``
+    steps under ``use_mesh`` (the flash kernels through ``local_map``),
+    then one profiled step beside phase 10's."""
+    from torch.distributed.tensor import DTensor
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokenDataset
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.parallel import act
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.tree import tree_leaves
+
+    steps, batch, seq, micro = TRAIN
+    cfg = get_config("llama3.2-1b", reduced=False)
+    params, opt = init_train_state(cfg, seed=0, device="cuda")
+    params = shd.distribute(params, shd.param_specs(params, cfg, mesh), mesh)
+    opt = shd.distribute(opt, shd.param_specs(opt, cfg, mesh), mesh)
+    step = make_train_step(cfg, lr=3e-4, microbatch=micro,
+                           compute_dtype=torch.float32)
+    ds = SyntheticTokenDataset(cfg.vocab, batch, seq, seed=0)
+    losses, gnorms, walls = [], [], []
+    for fn in counters.values():
+        fn.launches = 0
+    with act.use_mesh(mesh):
+        for i in range(steps):
+            t0 = time.perf_counter()
+            b = shard_batch(ds.batch(i), mesh)
+            params, opt, m = step(params, opt, b)
+            losses.append(m["loss"].full_tensor().item())
+            gnorms.append(m["grad_norm"].full_tensor().item())
+            walls.append(time.perf_counter() - t0)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    layers, n_micro = cfg.num_layers, batch // micro
+    want = {"flash_fwd": 2 * layers * n_micro,
+            "flash_bwd_dkdv": layers * n_micro,
+            "flash_bwd_dq": layers * n_micro}
+    check(all(launches[k] == steps * want.get(k, 0) for k in counters),
+          f"mesh train: launches {launches}, expected {steps} x {want}")
+    leaves = tree_leaves(params) + tree_leaves(opt)
+    check(all(isinstance(t, DTensor) and t.to_local().is_cuda
+              for t in leaves), "mesh train: a parameter or moment left "
+          "the mesh")
+    equal = (losses == train_out["losses"]
+             and gnorms == train_out["grad_norms"])
+    worst = max(abs(a - b) / abs(b) for a, b in
+                zip(losses + gnorms,
+                    train_out["losses"] + train_out["grad_norms"]))
+    check(equal or worst <= MESH_LOSS_RTOL, f"mesh train: losses {losses} / "
+          f"grad norms {gnorms} vs phase 8's {train_out['losses']} / "
+          f"{train_out['grad_norms']}")
+    say("mesh", f"llama3.2-1b full width on a 1x1 (data, model) mesh over "
+        f"NCCL, {steps} steps of {batch} x {seq} in microbatches of {micro}:"
+        f" losses {[round(x, 6) for x in losses]}, grad norms "
+        f"{[round(x, 6) for x in gnorms]}; vs phase 8: "
+        + ("bit-equal" if equal else f"worst relative gap {worst:.3e}")
+        + f"; launches per step flash_fwd {launches['flash_fwd'] // steps}, "
+        f"flash_bwd_dkdv {launches['flash_bwd_dkdv'] // steps}, flash_bwd_dq "
+        f"{launches['flash_bwd_dq'] // steps}; wall "
+        f"{[round(w, 2) for w in walls]} s/step (phase 8: "
+        f"{train_out['seconds'] / steps:.2f} s/step incl. its first)")
+
+    def run(i):
+        nonlocal params, opt
+        with act.use_mesh(mesh):
+            params, opt, m = step(params, opt, shard_batch(ds.batch(i), mesh))
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    run(steps)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(steps + 1)
+    dev_ms, split, n_launch = device_split(torch, prof, 1, "mesh train step")
+    idle = 1.0 - dev_ms / wall_ms
+    say("mesh", f"a sharded train step: host clock {wall_ms:.1f} ms, device "
+        f"busy {dev_ms:.1f} ms, idle share {idle:.3f}, {n_launch:.0f} kernel "
+        f"launches; phase 10's unsharded step: host clock "
+        f"{train_prof['host_ms']:.1f} ms, device busy "
+        f"{train_prof['device_ms']:.1f} ms, idle share "
+        f"{train_prof['idle']:.3f}, {train_prof['launches']:.0f} launches")
+    return {"launches": launches, "losses": losses, "grad_norms": gnorms,
+            "bit_equal": equal, "worst_rel": worst, "wall_s": walls,
+            "host_ms": wall_ms, "device_ms": dev_ms, "idle": idle,
+            "kernel_launches": n_launch}
+
+
+def mesh_moe(torch, counters, mesh):
+    """A 2-layer full-width olmoe-1b-7b ``loss_fn`` with its gradients on
+    the mesh (the MoE and flash kernels through ``local_map``) against the
+    same through the kernels unsharded."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokenDataset
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.models import decoder as dec
+    from repro_torch.parallel import act
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    B, S = MESH_MOE
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b"), repeats=2)
+    params = dec.init_model(cfg, seed=0, device="cuda")
+    batch_np = SyntheticTokenDataset(cfg.vocab, B, S).batch(0)
+
+    def value_and_grads(p, b):
+        leaves = [t.detach().requires_grad_(True) for t in tree_leaves(p)]
+        loss = dec.loss_fn(tree_unflatten(p, leaves), cfg, b,
+                           compute_dtype=torch.float32)
+        return loss, torch.autograd.grad(loss, leaves)
+
+    loss_u, g_u = value_and_grads(
+        params, {k: torch.from_numpy(v).cuda() for k, v in batch_np.items()})
+    dparams = shd.distribute(params, shd.param_specs(params, cfg, mesh), mesh)
+    for fn in counters.values():
+        fn.launches = 0
+    with act.use_mesh(mesh):
+        loss_m, g_m = value_and_grads(dparams, shard_batch(batch_np, mesh))
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    layers = cfg.num_layers
+    want = {"flash_fwd": 2 * layers, "flash_bwd_dkdv": layers,
+            "flash_bwd_dq": layers, "moe_dispatch": 3 * layers,
+            "moe_combine": 3 * layers}
+    check(all(launches[k] == want.get(k, 0) for k in counters),
+          f"mesh moe: launches {launches}, expected {want}")
+    held_loss = _held(torch, "olmoe loss", [(loss_m, loss_u)],
+                      MESH_LOSS_RTOL)
+    held_grad = _held(torch, "olmoe gradients", list(zip(g_m, g_u)),
+                      MESH_LEAF_RTOL)
+    say("mesh", f"olmoe-1b-7b full width, 2 layers, {B} x {S}: loss "
+        f"{_plain(loss_m).item():.6f} on the mesh vs "
+        f"{loss_u.item():.6f} unsharded ({held_loss}); gradients "
+        f"{held_grad}; launches {launches}")
+    return {"launches": launches, "loss": held_loss, "grads": held_grad}
+
+
+def mesh_serve(torch, counters, mesh):
+    """llama3.2-1b at full width: ``make_prefill_step`` on the mesh (the
+    flash forward through ``local_map``) and ``make_serve_step`` against a
+    dense cache laid out by ``cache_specs`` (the new token's k/v written
+    into its shard), each against the same step unsharded."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import decoder as dec
+    from repro_torch.parallel import act
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.tree import tree_map
+
+    B, S, L = MESH_SERVE
+    cfg = get_config("llama3.2-1b")
+    params = dec.init_model(cfg, seed=0, device="cuda")
+    tokens_np = np.random.default_rng(5).integers(
+        0, cfg.vocab, (B, S)).astype(np.int32)
+    tokens = torch.from_numpy(tokens_np).cuda()
+    prefill_step, serve_step = make_prefill_step(cfg), make_serve_step(cfg)
+    dparams = shd.distribute(params, shd.param_specs(params, cfg, mesh), mesh)
+
+    with torch.no_grad():
+        logits_u = prefill_step(params, {"tokens": tokens})
+        for fn in counters.values():
+            fn.launches = 0
+        with act.use_mesh(mesh):
+            logits_m = prefill_step(dparams,
+                                    shard_batch({"tokens": tokens_np}, mesh))
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        want = {"flash_fwd": cfg.num_layers}
+        check(all(launches[k] == want.get(k, 0) for k in counters),
+              f"mesh prefill: launches {launches}, expected {want}")
+        held_prefill = _held(torch, "prefill logits",
+                             [(logits_m, logits_u)], MESH_LEAF_RTOL)
+
+        cache = dec.init_cache(cfg, B, L, device="cuda")
+        _, cache = dec.prefill(params, cfg, tokens, cache)
+        mcache = tree_map(torch.clone, cache)
+        tok = torch.argmax(logits_u[:, -1:, :cfg.vocab], -1).to(torch.int32)
+        logits_du, cache = serve_step(params, tok, cache, S)
+        dcache = shd.distribute(mcache, shd.cache_specs(
+            mcache, cfg, mesh, batch_size=B), mesh)
+        dtok = shd.distribute(tok, shd.batch_specs(
+            {"t": tok}, mesh, batch_size=B)["t"], mesh)
+        with act.use_mesh(mesh):
+            logits_dm, dcache = serve_step(dparams, dtok, dcache, S)
+        torch.cuda.synchronize()
+    held_decode = _held(torch, "decode logits", [(logits_dm, logits_du)],
+                        MESH_LEAF_RTOL)
+    written = all(torch.equal(_plain(d[k])[:, :, S], c[k][:, :, S])
+                  for d, c in zip(dcache, cache) for k in ("k", "v", "pos"))
+    check(written, "mesh decode: the new token's cache row differs")
+    say("mesh", f"llama3.2-1b full width, bfloat16 compute: prefill step of "
+        f"{B} x {S} on the mesh vs unsharded {held_prefill}, flash_fwd "
+        f"launches {launches['flash_fwd']}; serve step at position {S} "
+        f"against a dense {L}-slot cache laid out by cache_specs "
+        f"{held_decode}, the new token's k/v/pos rows equal")
+    return {"launches": launches, "prefill": held_prefill,
+            "decode": held_decode}
+
+
+def mesh_pipeline(torch):
+    """A 1-stage ``pipeline_loss`` over NCCL: its loss and gradients
+    against the stage function's own, float32 on the card."""
+    from repro_torch.parallel.pipeline import (make_stage_mesh,
+                                               pipeline_loss,
+                                               stack_stage_params)
+    from repro_torch.tree import tree_leaves
+
+    M, mb, d = MESH_PIPE
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    w = torch.randn(d, d, generator=gen, device="cuda") * d ** -0.5
+    b = torch.randn(d, generator=gen, device="cuda") * 0.1
+    xs = torch.randn(M, mb, d, generator=gen, device="cuda")
+    labels = torch.randn(M, mb, d, generator=gen, device="cuda")
+
+    def stage_fn(p, x):
+        return torch.tanh(x @ p["w"] + p["b"])
+
+    def loss_fn(y, t):
+        return torch.mean((y - t) ** 2)
+
+    mesh = make_stage_mesh(1, device_type="cuda")
+    params = stack_stage_params([{"w": w, "b": b}])
+    leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
+    loss_p = pipeline_loss(stage_fn, loss_fn, params, xs, labels, mesh)
+    g_p = torch.autograd.grad(loss_p, leaves)
+    p0 = {"w": w.clone().requires_grad_(True),
+          "b": b.clone().requires_grad_(True)}
+    loss_d = torch.stack([loss_fn(stage_fn(p0, xs[m]), labels[m])
+                          for m in range(M)]).mean()
+    g_d = torch.autograd.grad(loss_d, [p0["b"], p0["w"]])
+    gap = max(((a[0] - c).abs().max()).item() for a, c in zip(g_p, g_d))
+    dloss = abs(loss_p.item() - loss_d.item())
+    check(dloss <= 1e-6 and gap <= 1e-6, f"mesh pipeline: loss gap {dloss}, "
+          f"gradient gap {gap}")
+    say("mesh", f"1-stage pipeline_loss over NCCL, {M} microbatches of "
+        f"{mb} x {d}: |dloss| {dloss:.3e}, max gradient gap {gap:.3e}")
+    return {"dloss": dloss, "grad_gap": gap}
+
+
+def mesh_dryrun():
+    """The dry run on the card's build: llama3.2-1b on the 16x16 mesh of the
+    fake backend with device type ``cuda`` — ``decode_32k`` (the dense
+    cache: no kernel on its path) and ``prefill_32k`` (the flash forward's
+    fake implementation and FLOP formula in the trace)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import close_process_group
+
+    recs = {}
+    try:
+        for shape in ("decode_32k", "prefill_32k"):
+            rec = dryrun.dryrun_one("llama3.2-1b", shape, device="cuda")
+            m, r, c = rec["memory"], rec["roofline"], rec["collectives"]
+            say("mesh", f"dry run llama3.2-1b {shape} on {rec['mesh']} "
+                f"(fake backend, cuda; per device, estimates for H100s): "
+                f"arguments {m['argument_bytes'] / 2**30:.3f} GiB, peak "
+                f"{m['peak_bytes_per_device'] / 2**30:.3f} GiB, "
+                f"{rec['cost']['flops']:.4g} FLOPs, "
+                f"{rec['cost']['bytes_accessed']:.4g} B accessed, "
+                f"collectives {c['bytes_by_kind']} ({c['counts']}); terms "
+                f"compute {r['compute_s']:.4g} s, memory "
+                f"{r['memory_s']:.4g} s, collective {r['collective_s']:.4g}"
+                f" s ({r['dominant']}); kernels in the graph "
+                f"{rec['kernels']}; traced in {rec['lower_s']} s")
+            recs[shape] = rec
+    finally:
+        close_process_group()
+    check(recs["prefill_32k"]["kernels"].get("flash_fwd") == 16,
+          f"dry run: the prefill graph holds "
+          f"{recs['prefill_32k']['kernels']}, not 16 flash_fwd")
+    return recs
+
+
+def phase_mesh(torch, counters, train_out, train_prof):
+    """Phase 18: the multi-device layer on the one card — a 1x1 (data,
+    model) mesh over NCCL (world size 1): the sharded training, the MoE
+    loss, prefill and decode, a 1-stage pipeline; then the dry run on the
+    fake backend."""
+    from repro_torch.launch.mesh import close_process_group, make_smoke_mesh
+
+    mesh = make_smoke_mesh(device_type="cuda", backend="nccl")
+    try:
+        out = {"train": mesh_train(torch, counters, mesh, train_out,
+                                   train_prof)}
+        torch.cuda.empty_cache()
+        out["moe"] = mesh_moe(torch, counters, mesh)
+        torch.cuda.empty_cache()
+        out["serve"] = mesh_serve(torch, counters, mesh)
+        torch.cuda.empty_cache()
+        out["pipeline"] = mesh_pipeline(torch)
+    finally:
+        close_process_group()
+    out["dryrun"] = mesh_dryrun()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", metavar="NAME.cu", action="append",
@@ -3761,10 +4126,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # 8.-10. training: the teacher checks and a profiled step
-    train_launches, _, _ = phase_train(torch, counters)
+    train_launches, train_out, _ = phase_train(torch, counters)
     torch.cuda.empty_cache()
     teacher = phase_teacher(torch, counters)
-    phase_train_profile(torch)
+    train_prof = phase_train_profile(torch)
     torch.cuda.empty_cache()
 
     # 11. CTR training over the parameter server
@@ -3809,6 +4174,11 @@ def main(argv=None) -> int:
     mixer_teacher_runs = phase_mixer_teacher(torch, counters)
     say("mixers", f"phase 17 took {time.perf_counter() - t0:.1f} s")
 
+    # 18. the multi-device layer: a 1x1 mesh over NCCL, the dry run
+    t0 = time.perf_counter()
+    mesh = phase_mesh(torch, counters, train_out, train_prof)
+    say("mesh", f"phase 18 took {time.perf_counter() - t0:.1f} s")
+
     #: the main paths, each run with the counts set to 0 just before it
     #: and read just after; ``launches`` sums them
     main_paths = (("llama3.2-1b serve", llama_launches),
@@ -3819,7 +4189,9 @@ def main(argv=None) -> int:
                   ("olmoe-1b-7b train, 16 layers, bfloat16",
                    olmoe_train["launches"]),
                   *((f"{a} serve ({r['dtype']}, {r['layers']} layers)",
-                     r["launches"]) for a, r in mixers.items()))
+                     r["launches"]) for a, r in mixers.items()),
+                  ("llama3.2-1b train on a 1x1 mesh",
+                   mesh["train"]["launches"]))
     paths = (*main_paths,
              ("llama3.2-1b serve --replan", replan_launches),
              ("olmoe-1b-7b 2-layer train check",
@@ -3828,6 +4200,10 @@ def main(argv=None) -> int:
                for a, r in arch_teacher.items()),
              *((f"{a} 2-layer train check", r["launches"])
                for a, r in mixer_teacher_runs.items()),
+             ("olmoe-1b-7b 2-layer loss on a 1x1 mesh",
+              mesh["moe"]["launches"]),
+             ("llama3.2-1b prefill step on a 1x1 mesh",
+              mesh["serve"]["launches"]),
              *cli_launches.items())
     by_path = {k: {p: n[k] for p, n in paths if n.get(k)} for k in counters}
     on_main = {k: sum(n.get(k, 0) for _, n in main_paths) for k in counters}

@@ -7,9 +7,9 @@
 * :class:`PrefetchLoader` — background-thread prefetch with a bounded
   queue.
 
-Batches are NumPy arrays; the trainer moves them to the device.  Placing
-a batch on a multi-device mesh (the reference's ``shard_batch``) waits
-for the multi-device layer (ROADMAP.md queue 1 item 12).
+Batches are NumPy arrays; the trainer moves them to the device, and
+:func:`shard_batch` places one on a DeviceMesh (batch dim over the data
+axes).
 """
 
 from __future__ import annotations
@@ -139,3 +139,26 @@ class PrefetchLoader:
         """Stop the worker; safe to call repeatedly / with a blocked consumer."""
         self._stop.set()
         self._t.join(timeout)
+
+
+def shard_batch(batch: dict, mesh, batch_axes=("pod", "data")) -> dict:
+    """Place a host batch of NumPy arrays on ``mesh``: each array becomes a
+    DTensor on the mesh's device type with the batch dim sharded over the
+    batch axes the mesh has (in the mesh's order), replicated on the
+    others (``model``).  Each rank cuts its shard from its own copy of the
+    batch: every rank must pass the same batch."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.parallel.sharding import placements
+
+    axes = tuple(a for a in batch_axes if a in mesh.mesh_dim_names)
+    dev = mesh.device_type
+
+    def put(x):
+        t = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        spec = (axes or None, *([None] * (t.dim() - 1)))
+        return distribute_tensor(t, mesh, placements(spec, mesh),
+                                 src_data_rank=None)
+
+    return {k: put(v) for k, v in batch.items()}

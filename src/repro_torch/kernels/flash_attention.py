@@ -15,7 +15,10 @@ a row whose keys are all masked averages V uniformly.
 * :func:`flash_fwd_cuda`, :func:`flash_bwd_dkdv_cuda`,
   :func:`flash_bwd_dq_cuda` — the three entry points of
   ``csrc/flash_attention.cu`` (CUDA tensors only), each with a
-  ``launches`` count;
+  ``launches`` count.  Each launches through a ``torch.library`` custom
+  op (``repro_torch::flash_fwd`` / ``flash_bwd_dkdv`` / ``flash_bwd_dq``)
+  with a fake implementation and a FLOP formula, so a trace over fake
+  tensors (the dry run) records the kernel without launching it;
 * :class:`FlashAttention` / :func:`flash_attention_cuda` — forward and
   backward both through the kernels.
 """
@@ -25,7 +28,10 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
+from torch import Tensor
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 
@@ -86,6 +92,13 @@ def _kernel_fns():
     return _FNS
 
 
+def _refuse_autograd(name: str, *tensors) -> None:
+    _build.refuse_autograd(
+        name, *tensors,
+        reason="its gradient comes from FlashAttention (kernels.ops."
+               "flash_attention), which launches the backward kernels")
+
+
 def _check(name: str, q, k, v, *rows) -> None:
     """q (and each of ``rows``: o, dO) (B,H,Sq,hd); k, v (B,H,Sk,hd); one
     dtype, one device, contiguous, a head dim the kernels are built for."""
@@ -94,10 +107,6 @@ def _check(name: str, q, k, v, *rows) -> None:
         raise ValueError(f"{name} takes CUDA tensors only")
     if len({t.device for t in tensors}) != 1:
         raise ValueError(f"{name}: tensors on different devices")
-    _build.refuse_autograd(
-        name, *tensors,
-        reason="its gradient comes from FlashAttention (kernels.ops."
-               "flash_attention), which launches the backward kernels")
     if q.dtype not in _KERNEL_DTYPES or any(t.dtype != q.dtype
                                              for t in tensors):
         raise ValueError(f"{name}: q, k, v need one dtype, float32 or "
@@ -150,6 +159,17 @@ def flash_fwd_cuda(q, k, v, *, causal: bool = True,
     in q's dtype and lse (B,H,Sq) float32, the per-row log-sum-exp the
     backward needs.  Same math as :func:`flash_attention_ref`; contiguous
     CUDA tensors only.  ``flash_fwd_cuda.launches`` counts the launches."""
+    _refuse_autograd("flash_fwd_cuda", q, k, v)
+    return _flash_fwd(q, k, v, causal, window, softcap)
+
+
+flash_fwd_cuda.launches = 0
+
+
+@torch.library.custom_op("repro_torch::flash_fwd", mutates_args=())
+def _flash_fwd(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+               window: int | None, softcap: float | None
+               ) -> tuple[Tensor, Tensor]:
     _check("flash_fwd_cuda", q, k, v)
     BH, Sq, hd, c, w, cap, scale, dt = _mask_args(q, causal, window,
                                                   softcap)
@@ -162,7 +182,10 @@ def flash_fwd_cuda(q, k, v, *, causal: bool = True,
     return o, lse
 
 
-flash_fwd_cuda.launches = 0
+@_flash_fwd.register_fake
+def _(q, k, v, causal, window, softcap):
+    return torch.empty_like(q), q.new_empty(q.shape[:3],
+                                            dtype=torch.float32)
 
 
 def flash_bwd_dkdv_cuda(q, k, v, o, lse, do, *, causal: bool = True,
@@ -173,6 +196,17 @@ def flash_bwd_dkdv_cuda(q, k, v, o, lse, do, *, causal: bool = True,
     it).  Returns ``(dk, dv, delta)``; ``delta`` (B,H,Sq) float32 feeds
     :func:`flash_bwd_dq_cuda`.  ``flash_bwd_dkdv_cuda.launches`` counts
     the launches."""
+    _refuse_autograd("flash_bwd_dkdv_cuda", q, k, v, o, do)
+    return _flash_bwd_dkdv(q, k, v, o, lse, do, causal, window, softcap)
+
+
+flash_bwd_dkdv_cuda.launches = 0
+
+
+@torch.library.custom_op("repro_torch::flash_bwd_dkdv", mutates_args=())
+def _flash_bwd_dkdv(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor,
+                    do: Tensor, causal: bool, window: int | None,
+                    softcap: float | None) -> tuple[Tensor, Tensor, Tensor]:
     _check("flash_bwd_dkdv_cuda", q, k, v, o, do)
     _check_lse(lse, q)
     BH, Sq, hd, c, w, cap, scale, dt = _mask_args(q, causal, window,
@@ -187,7 +221,9 @@ def flash_bwd_dkdv_cuda(q, k, v, o, lse, do, *, causal: bool = True,
     return dk, dv, delta
 
 
-flash_bwd_dkdv_cuda.launches = 0
+@_flash_bwd_dkdv.register_fake
+def _(q, k, v, o, lse, do, causal, window, softcap):
+    return torch.empty_like(k), torch.empty_like(v), torch.empty_like(lse)
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, *, causal: bool = True,
@@ -197,6 +233,17 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, *, causal: bool = True,
     looping over its key tiles), from the ``delta`` of
     :func:`flash_bwd_dkdv_cuda`.  ``flash_bwd_dq_cuda.launches`` counts
     the launches."""
+    _refuse_autograd("flash_bwd_dq_cuda", q, k, v, do)
+    return _flash_bwd_dq(q, k, v, do, lse, delta, causal, window, softcap)
+
+
+flash_bwd_dq_cuda.launches = 0
+
+
+@torch.library.custom_op("repro_torch::flash_bwd_dq", mutates_args=())
+def _flash_bwd_dq(q: Tensor, k: Tensor, v: Tensor, do: Tensor, lse: Tensor,
+                  delta: Tensor, causal: bool, window: int | None,
+                  softcap: float | None) -> Tensor:
     _check("flash_bwd_dq_cuda", q, k, v, do)
     _check_lse(lse, q)
     _check_lse(delta, q)
@@ -211,7 +258,51 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, *, causal: bool = True,
     return dq
 
 
-flash_bwd_dq_cuda.launches = 0
+@_flash_bwd_dq.register_fake
+def _(q, k, v, do, lse, delta, causal, window, softcap):
+    return torch.empty_like(q)
+
+
+def attended_pairs(Sq: int, Sk: int, causal: bool,
+                   window: int | None) -> int:
+    """Query-key pairs that the index mask keeps: row r attends keys c
+    with ``c <= r`` (causal) and ``r - c < window``."""
+    if not causal and not window:
+        return Sq * Sk
+    r = np.arange(Sq, dtype=np.int64)            # NumPy: no fake tensors
+    hi = np.minimum(r, Sk - 1) if causal else np.full_like(r, Sk - 1)
+    lo = np.maximum(r - window + 1, 0) if window else np.zeros_like(r)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _flash_kernel_flops(q_shape, k_shape, products: int, causal,
+                        window) -> int:
+    """``products`` hd-long dot products per attended pair, two FLOPs per
+    multiply-add."""
+    B, H, Sq, hd = q_shape
+    return 2 * products * hd * B * H * attended_pairs(Sq, k_shape[2],
+                                                      causal, window)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_fwd)
+def _(q_shape, k_shape, v_shape, causal, window, softcap, *args,
+      **kwargs) -> int:
+    """QKᵀ and PV: 4·hd FLOPs per attended pair."""
+    return _flash_kernel_flops(q_shape, k_shape, 2, causal, window)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_bwd_dkdv)
+def _(q_shape, k_shape, v_shape, o_shape, lse_shape, do_shape, causal,
+      window, softcap, *args, **kwargs) -> int:
+    """QKᵀ again, dOVᵀ, PᵀdO and dSᵀQ: 8·hd FLOPs per pair."""
+    return _flash_kernel_flops(q_shape, k_shape, 4, causal, window)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_bwd_dq)
+def _(q_shape, k_shape, v_shape, do_shape, lse_shape, delta_shape, causal,
+      window, softcap, *args, **kwargs) -> int:
+    """QKᵀ again, dOVᵀ and dS·K: 6·hd FLOPs per pair."""
+    return _flash_kernel_flops(q_shape, k_shape, 3, causal, window)
 
 
 def _check_lse(t, q) -> None:

@@ -32,6 +32,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch import Tensor
 
 from repro_torch.kernels import _build
 
@@ -166,11 +167,6 @@ def _check_tensors(name: str, data, ints, floats, *,
         raise ValueError(f"{name} takes CUDA tensors only")
     if len({t.device for t in tensors}) != 1:
         raise ValueError(f"{name}: tensors on different devices")
-    _build.refuse_autograd(
-        name, *tensors,
-        reason="its gradient comes from MoeDispatch / MoeCombine "
-               "(kernels.ops.moe_dispatch / moe_combine), which launch the "
-               "other kernel as the backward")
     if data.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"{name}: data dtype {data.dtype} is not float32 "
                          "or bfloat16")
@@ -182,6 +178,14 @@ def _check_tensors(name: str, data, ints, floats, *,
         raise ValueError(f"{name}: tensors must be contiguous"
                          + (" (the data along its last axis)"
                             if strided_data else ""))
+
+
+def _refuse_autograd(name: str, *tensors) -> None:
+    _build.refuse_autograd(
+        name, *tensors,
+        reason="its gradient comes from MoeDispatch / MoeCombine "
+               "(kernels.ops.moe_dispatch / moe_combine), which launch the "
+               "other kernel as the backward")
 
 
 def _launched(name: str, err: int, shape) -> None:
@@ -200,8 +204,18 @@ def moe_dispatch_cuda(x, slot_src, slot_w):
     CUDA tensors only; raises on anything the kernel does not take, when
     the launch is refused, and under autograd (:class:`MoeDispatch` is the
     differentiable form).  ``moe_dispatch_cuda.launches`` counts the
-    launches."""
-    slot_w = slot_w.to(torch.float32)
+    launches.  The launch goes through the custom op
+    ``repro_torch::moe_dispatch``, whose fake implementation lets a trace
+    over fake tensors record it."""
+    _refuse_autograd("moe_dispatch_cuda", x, slot_src, slot_w)
+    return _moe_dispatch(x, slot_src, slot_w.to(torch.float32))
+
+
+moe_dispatch_cuda.launches = 0
+
+
+@torch.library.custom_op("repro_torch::moe_dispatch", mutates_args=())
+def _moe_dispatch(x: Tensor, slot_src: Tensor, slot_w: Tensor) -> Tensor:
     _check_tensors("moe_dispatch_cuda", x, (slot_src,), (slot_w,))
     if x.dim() != 3 or slot_src.dim() != 3 or slot_w.shape != slot_src.shape:
         raise ValueError(
@@ -225,7 +239,10 @@ def moe_dispatch_cuda(x, slot_src, slot_w):
     return out
 
 
-moe_dispatch_cuda.launches = 0
+@_moe_dispatch.register_fake
+def _(x, slot_src, slot_w):
+    G, E, C = slot_src.shape
+    return x.new_empty((G, E, C, x.shape[2]))
 
 
 def moe_combine_cuda(buf, eid, pos, w):
@@ -238,8 +255,17 @@ def moe_combine_cuda(buf, eid, pos, w):
     permuted output) as long as its D axis is contiguous.  CUDA tensors
     only; raises on anything the kernel does not take, when the launch is
     refused, and under autograd (:class:`MoeCombine` is the differentiable
-    form).  ``moe_combine_cuda.launches`` counts the launches."""
-    w = w.to(torch.float32)
+    form).  ``moe_combine_cuda.launches`` counts the launches, through the
+    custom op ``repro_torch::moe_combine`` as for dispatch."""
+    _refuse_autograd("moe_combine_cuda", buf, eid, pos, w)
+    return _moe_combine(buf, eid, pos, w.to(torch.float32))
+
+
+moe_combine_cuda.launches = 0
+
+
+@torch.library.custom_op("repro_torch::moe_combine", mutates_args=())
+def _moe_combine(buf: Tensor, eid: Tensor, pos: Tensor, w: Tensor) -> Tensor:
     _check_tensors("moe_combine_cuda", buf, (eid, pos), (w,),
                    strided_data=True)
     if buf.dim() != 4 or eid.dim() != 3 or not (
@@ -265,7 +291,10 @@ def moe_combine_cuda(buf, eid, pos, w):
     return out
 
 
-moe_combine_cuda.launches = 0
+@_moe_combine.register_fake
+def _(buf, eid, pos, w):
+    G, S, _ = eid.shape
+    return buf.new_empty((G, S, buf.shape[3]))
 
 
 # --------------------------------------------------------------------------

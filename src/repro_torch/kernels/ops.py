@@ -5,6 +5,12 @@
 PyTorch version for CPU tensors — the choice follows the device the data
 lies on, never whether a GPU was found.  A failed build or launch raises;
 nothing falls back.
+
+DTensors (a model on a DeviceMesh) go through ``local_map``: the inputs
+are laid out with only the dims the kernel can split kept sharded (the
+batch and head dims of attention, the group dim of the MoE, the batch of
+a paged decode; everything else replicated), and each rank runs the same
+kernel — or, for CPU shards, the same plain version — on its own shard.
 """
 
 from __future__ import annotations
@@ -13,6 +19,31 @@ from repro_torch.kernels import embedding_bag as bag_k
 from repro_torch.kernels import flash_attention as flash_k
 from repro_torch.kernels import moe as moe_k
 from repro_torch.kernels import paged_attention as paged_k
+from repro_torch.parallel.act import is_dtensor as _is_dtensor
+
+
+def _layout(t, keep: tuple[int, ...]):
+    """``t``'s placements with the shards of dims outside ``keep`` (and
+    any pending sum) replaced by replication."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return tuple(p if isinstance(p, Shard) and p.dim in keep else Replicate()
+                 for p in t.placements)
+
+
+def _per_shard(fn, args, in_layouts, out_layout):
+    """``fn`` on each rank's shards of ``args`` (DTensors, or plain tensors
+    taken as replicated) laid out as ``in_layouts``; the result is a
+    DTensor laid out as ``out_layout``."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = next(a.device_mesh for a in args if _is_dtensor(a))
+    args = [a if _is_dtensor(a) else DTensor.from_local(
+        a, mesh, [Replicate()] * mesh.ndim, run_check=False) for a in args]
+    return local_map(fn, out_placements=(out_layout,),
+                     in_placements=tuple(in_layouts),
+                     redistribute_inputs=True)(*args)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -33,6 +64,13 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if impl not in ("auto", "ref", "cuda"):
         raise ValueError(f"unknown flash-attention impl {impl!r}: expected "
                          "auto/ref/cuda")
+    if _is_dtensor(q):                 # batch and heads stay split
+        pl = _layout(q, (0, 1))
+        return _per_shard(
+            lambda a, b, c: flash_attention(a, b, c, causal=causal,
+                                            window=window, softcap=softcap,
+                                            impl=impl),
+            (q, k, v), (pl, pl, pl), pl)
     if impl == "ref" or (impl == "auto" and not q.is_cuda):
         return flash_k.flash_attention_ref(q, k, v, causal=causal,
                                            window=window, softcap=softcap)
@@ -80,6 +118,14 @@ def paged_attention_decode(q, k_pages, v_pages, page_table, q_pos, *,
     if impl not in ("auto", "gather", "cuda"):
         raise ValueError(f"unknown paged-attention impl {impl!r}: expected "
                          "auto/gather/cuda")
+    if _is_dtensor(q):                 # the batch stays split; pools whole
+        pl = _layout(q, (0,))
+        whole = _layout(k_pages, ())
+        return _per_shard(
+            lambda *a: paged_attention_decode(*a, window=window,
+                                              softcap=softcap, impl=impl),
+            (q, k_pages, v_pages, page_table, q_pos),
+            (pl, whole, whole, pl, pl), pl)
     if impl == "gather" or (impl == "auto" and not q.is_cuda):
         return paged_k.paged_decode_gather(q, k_pages, v_pages, page_table,
                                            q_pos, window=window,
@@ -119,6 +165,13 @@ def moe_dispatch(x, eid, pos, wtok, *, num_experts: int, capacity: int,
     is the combine kernel — and the slot gather
     (:func:`moe_k.dispatch_slot`) for CPU tensors; ``slot`` forces the
     plain version, ``cuda`` the kernel.  Differentiable on every path."""
+    if _is_dtensor(x):                 # groups stay split
+        pl = _layout(x, (0,))
+        return _per_shard(
+            lambda *a: moe_dispatch(*a, num_experts=num_experts,
+                                    capacity=capacity, top_k=top_k,
+                                    impl=impl),
+            (x, eid, pos, wtok), (pl,) * 4, pl)
     impl = _moe_impl(impl, x)
     if impl == "cuda":
         return moe_k.MoeDispatch.apply(x, eid, pos, wtok, num_experts,
@@ -134,6 +187,10 @@ def moe_combine(buf, eid, pos, w, *, impl: str = "auto"):
     Same ``impl`` choices as :func:`moe_dispatch`; the kernel path goes
     through :class:`moe_k.MoeCombine`, whose backward is the dispatch
     kernel plus the gate gradient's gather-dot."""
+    if _is_dtensor(buf):               # groups stay split
+        pl = _layout(buf, (0,))
+        return _per_shard(lambda *a: moe_combine(*a, impl=impl),
+                          (buf, eid, pos, w), (pl,) * 4, pl)
     if _moe_impl(impl, buf) == "cuda":
         return moe_k.MoeCombine.apply(buf, eid, pos, w)
     return moe_k.combine_slot(buf, eid, pos, w)

@@ -27,6 +27,7 @@ import math
 
 import numpy as np
 import torch
+from torch import Tensor
 
 from repro_torch.kernels import _build
 
@@ -294,14 +295,27 @@ def paged_decode_cuda(q, k_pages, v_pages, page_table, q_pos, *,
     has no backward).  The pages of each (b, kv) are split over
     :func:`decode_splits` blocks, whose f32 partials go to scratch from
     ``torch.empty`` and are merged by the entry point's combine kernel.
-    ``paged_decode_cuda.launches`` counts the calls of the entry point."""
+    ``paged_decode_cuda.launches`` counts the calls of the entry point,
+    which launches through the custom op ``repro_torch::paged_decode``
+    (its fake implementation lets a trace over fake tensors record it)."""
+    _build.refuse_autograd(
+        "paged_decode_cuda", q, k_pages, v_pages, page_table, q_pos,
+        reason="paged decode serves decode steps and has no backward "
+               "kernel (the reference has none either)")
+    return _paged_decode(q, k_pages, v_pages, page_table, q_pos, window,
+                         softcap)
+
+
+paged_decode_cuda.launches = 0
+
+
+@torch.library.custom_op("repro_torch::paged_decode", mutates_args=())
+def _paged_decode(q: Tensor, k_pages: Tensor, v_pages: Tensor,
+                  page_table: Tensor, q_pos: Tensor, window: int | None,
+                  softcap: float | None) -> Tensor:
     tensors = (q, k_pages, v_pages, page_table, q_pos)
     if not all(t.is_cuda for t in tensors):
         raise ValueError("paged_decode_cuda takes CUDA tensors only")
-    _build.refuse_autograd(
-        "paged_decode_cuda", *tensors,
-        reason="paged decode serves decode steps and has no backward "
-               "kernel (the reference has none either)")
     if len({t.device for t in tensors}) != 1:
         raise ValueError("paged_decode_cuda: tensors on different devices")
     if q.dtype not in _KERNEL_DTYPES:
@@ -362,7 +376,9 @@ def paged_decode_cuda(q, k_pages, v_pages, page_table, q_pos, *,
     return out
 
 
-paged_decode_cuda.launches = 0
+@_paged_decode.register_fake
+def _(q, k_pages, v_pages, page_table, q_pos, window, softcap):
+    return torch.empty_like(q)
 
 
 # --------------------------------------------------------------------------

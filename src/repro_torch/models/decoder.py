@@ -51,6 +51,7 @@ from repro_torch.nn import moe as moe_mod
 from repro_torch.nn import rwkv as rwkv_mod
 from repro_torch.nn.attention import AttnSpec
 from repro_torch.nn.base import layernorm, masked_nll, rmsnorm, softcap
+from repro_torch.parallel import act
 from repro_torch.tree import tree_map as _tree_map
 
 #: the whisper encoder's layer: bidirectional self-attention, dense FFN
@@ -242,9 +243,14 @@ _POOL_KEYS = ("kp", "vp")
 
 
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
-               dtype=torch.bfloat16, *, page_size: int = 16,
-               num_pages: int | None = None, device=None):
+               dtype=torch.bfloat16, *, global_cap: int | None = None,
+               page_size: int = 16, num_pages: int | None = None,
+               device=None):
     """Decode cache, stacked (repeats, …) per pattern position.
+
+    ``global_cap`` bounds the KV length of full-attention layers (no
+    window; gemma2's global layers at ``long_500k``, passed by
+    :mod:`repro_torch.launch.specs`).
 
     Dense (``cfg.kv_impl == "dense"``): a tuple over the pattern of each
     layer's cache: ``{"k", "v", "pos"}`` ring buffers (window-capped
@@ -268,7 +274,11 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
     R = cfg.repeats
     caches = []
     for spec in cfg.pattern:
-        one = _layer_cache(cfg, spec, batch, cache_len, dtype, dev,
+        L = cache_len
+        if (global_cap is not None and spec.mixer == "attn"
+                and spec.window is None):
+            L = min(L, global_cap)
+        one = _layer_cache(cfg, spec, batch, L, dtype, dev,
                            pool=(num_pages, page_size) if paged else None)
         caches.append({k: v[None].repeat(R, *([1] * v.dim()))
                        for k, v in one.items()})
@@ -343,7 +353,7 @@ def _decode_layer(cfg, spec: LayerSpec, p, x, cache, index, *, paged=None,
     shared page pool (ragged per-sequence positions) and gives the
     ``attn+cross`` decode its per-slot positions; ``None`` keeps the dense
     ring-buffer path (one ``index``)."""
-    p = _cast(p, x.dtype)
+    p = act.gather_params(_cast(p, x.dtype), cfg)
     aspec = _attn_spec(cfg, spec)
     h = _norm(cfg, p["norm1"], x)
     if spec.mixer in ("attn", "attn+cross"):
@@ -380,7 +390,7 @@ def _decode_layer(cfg, spec: LayerSpec, p, x, cache, index, *, paged=None,
 
 
 def _embed(params, cfg: ArchConfig, tokens, compute_dtype):
-    x = params["embed"][tokens.long()].to(compute_dtype)
+    x = act.embed_lookup(params["embed"], tokens.long()).to(compute_dtype)
     if cfg.embed_scale:
         x = x * math.sqrt(cfg.d_model)
     return x
@@ -392,9 +402,13 @@ def _head_weight(params, cfg: ArchConfig, compute_dtype):
     return head.to(compute_dtype)
 
 
-def _logits(params, cfg: ArchConfig, x, compute_dtype):
-    """Head and final soft-cap of normed hidden states."""
+def _logits(params, cfg: ArchConfig, x, compute_dtype, *, shard=False):
+    """Head and final soft-cap of normed hidden states; ``shard`` lays
+    the logits out batch × vocab on an active mesh (the full-sequence
+    forward's)."""
     logits = x @ _head_weight(params, cfg, compute_dtype)
+    if shard:
+        logits = act.shard_logits(logits)
     if cfg.final_softcap:
         logits = softcap(logits.float(), cfg.final_softcap)
     return logits
@@ -425,7 +439,7 @@ def _apply_layer(cfg, spec: LayerSpec, p, x, *, positions, cross_kv=None,
     flash kernels, ``cfg.attn_impl``; cross-attention non-causal over
     ``cross_kv`` (B, N, D)) then the FFN.  Returns (x, moe_aux) with
     moe_aux a float32 scalar tensor."""
-    p = _cast(p, x.dtype)
+    p = act.gather_params(_cast(p, x.dtype), cfg)
     h = _norm(cfg, p["norm1"], x)
     if spec.mixer in ("cross_attn", "attn+cross"):
         kv_pos = _arange_positions(*cross_kv.shape[:2], x.device)
@@ -479,6 +493,7 @@ def _run_blocks(params, cfg: ArchConfig, x, *, positions, cross_kv=None,
                 x, a = checkpoint(layer, x, cross_kv, use_reentrant=False)
             else:
                 x, a = layer(x, cross_kv)
+            x = act.shard_batch_act(x)
             aux = aux + a
     return x, aux
 
@@ -493,8 +508,9 @@ def _encode(params, cfg: ArchConfig, context, *, remat=True):
     positions = _arange_positions(*x.shape[:2], x.device)
     for r in range(cfg.encoder.num_layers):
         def layer(x, _p=_layer_views(enc["blocks"], r)):
-            return _apply_layer(cfg, ENCODER_LAYER, _p, x,
-                                positions=positions, causal=False)[0]
+            return act.shard_batch_act(_apply_layer(
+                cfg, ENCODER_LAYER, _p, x, positions=positions,
+                causal=False)[0])
 
         x = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
     return _norm(cfg, enc["final_norm"], x)
@@ -521,7 +537,7 @@ def _hidden(params, cfg: ArchConfig, tokens, *, context=None,
     are ``arange(S)`` per row, which the flash kernel's index masking
     relies on.  Returns (x (B, S, D), moe_aux)."""
     B, S = tokens.shape
-    x = _embed(params, cfg, tokens, compute_dtype)
+    x = act.shard_batch_act(_embed(params, cfg, tokens, compute_dtype))
     if cfg.pos_embed == "learned":
         x = x + params["pos"][:S].to(compute_dtype)
     cross_kv = _cross_source(params, cfg, context, compute_dtype, remat)
@@ -539,7 +555,7 @@ def forward(params, cfg: ArchConfig, tokens, *, context=None,
     the MoE ``cfg.moe_impl``."""
     x, aux = _hidden(params, cfg, tokens, context=context,
                      compute_dtype=compute_dtype, remat=remat)
-    return _logits(params, cfg, x, compute_dtype), aux
+    return _logits(params, cfg, x, compute_dtype, shard=True), aux
 
 
 #: sequence-chunk length for the loss head: logits materialize one
@@ -550,7 +566,7 @@ MOE_AUX_COEF = 0.01
 
 def _chunk_nll(x_c, y_c, head, final_softcap):
     """Summed token NLL and token count of one sequence chunk."""
-    logits = x_c @ head
+    logits = act.shard_logits(x_c @ head)
     if final_softcap:
         logits = softcap(logits.float(), final_softcap)
     return masked_nll(logits, y_c)
@@ -609,8 +625,8 @@ def decode_step(params, cfg: ArchConfig, token, cache, index=0, *,
         p_r = _layer_views(params["blocks"], r)
         c_r = _layer_views(layers, r)
         for j, spec in enumerate(cfg.pattern):
-            x = _decode_layer(cfg, spec, p_r[j], x, c_r[j], index,
-                              paged=pctx, impl=impl)
+            x = act.shard_batch_act(_decode_layer(
+                cfg, spec, p_r[j], x, c_r[j], index, paged=pctx, impl=impl))
     logits = _head(params, cfg, x, compute_dtype)
     if paged:
         cache = {**cache,
@@ -644,7 +660,7 @@ def _prefill_layer(cfg, spec: LayerSpec, p, x, cache, positions, lengths,
                    table):
     """One prefill layer: forward + fill this layer's decode cache (in
     place).  Cross-attention attends the cache's ``ck``/``cv``."""
-    p = _cast(p, x.dtype)
+    p = act.gather_params(_cast(p, x.dtype), cfg)
     h = _norm(cfg, p["norm1"], x)
     if spec.mixer in ("attn", "attn+cross"):
         y, k, v = attn_mod.prefill_attention(
@@ -700,6 +716,7 @@ def prefill(params, cfg: ArchConfig, tokens, cache, *, lengths=None,
     x = _embed(params, cfg, tokens, compute_dtype)
     if cfg.pos_embed == "learned":
         x = x + params["pos"][:S].to(compute_dtype)
+    x = act.shard_batch_act(x)
     positions = _arange_positions(B, S, dev)
     lens = (torch.full((B,), S, dtype=torch.int32, device=dev)
             if lengths is None
@@ -710,8 +727,8 @@ def prefill(params, cfg: ArchConfig, tokens, cache, *, lengths=None,
         p_r = _layer_views(params["blocks"], r)
         c_r = _layer_views(layers, r)
         for j, spec in enumerate(cfg.pattern):
-            x = _prefill_layer(cfg, spec, p_r[j], x, c_r[j], positions, lens,
-                               table)
+            x = act.shard_batch_act(_prefill_layer(
+                cfg, spec, p_r[j], x, c_r[j], positions, lens, table))
     logits = _head(params, cfg, x, compute_dtype)
     if paged:
         cache = {**cache,

@@ -24,6 +24,7 @@ import torch
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import paged_attention as paged_k
 from repro_torch.nn.base import apply_rope, rmsnorm, softcap
+from repro_torch.parallel import act
 
 NEG_INF = -1e30
 #: sequences longer than this use the blockwise path (bounds the live
@@ -105,6 +106,7 @@ def _sdpa_direct(q, k, v, q_pos, k_pos, spec: AttnSpec):
         logits = softcap(logits, spec.logit_softcap)
     logits = logits + _mask_bias(q_pos, k_pos, causal=spec.causal,
                                  window=spec.window)[:, None]
+    logits = act.shard_heads(logits, axis=1)
     w = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.einsum("bhqs,bshd->bqhd", w, v)
 
@@ -132,6 +134,7 @@ def _sdpa_blockwise(q, k, v, q_pos, k_pos, spec: AttnSpec):
             s = softcap(s, spec.logit_softcap)
         s = s + _mask_bias(q_pos, k_pos[:, blk], causal=spec.causal,
                            window=spec.window)[:, None]
+        s = act.shard_heads(s, axis=1)
         m_new = torch.maximum(m, s.amax(-1))
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new[..., None])
@@ -153,9 +156,9 @@ def _project_qkv(p, x, kv_x, spec: AttnSpec, q_pos, k_pos):
     expanded to H."""
     B, Sq, _ = x.shape
     H, KV, hd = spec.n_heads, spec.n_kv_heads, spec.head_dim
-    q = (x @ p["wq"]).reshape(B, Sq, H, hd)
-    k = (kv_x @ p["wk"]).reshape(B, kv_x.shape[1], KV, hd)
-    v = (kv_x @ p["wv"]).reshape(B, kv_x.shape[1], KV, hd)
+    q = act.split_heads(x @ p["wq"], H, hd)
+    k = act.split_heads(kv_x @ p["wk"], KV, hd)
+    v = act.split_heads(kv_x @ p["wv"], KV, hd)
     if spec.qk_norm:
         q = rmsnorm(q, p["q_norm"])
         k = rmsnorm(k, p["k_norm"])
@@ -164,7 +167,9 @@ def _project_qkv(p, x, kv_x, spec: AttnSpec, q_pos, k_pos):
                        fraction=spec.rope_fraction)
         k = apply_rope(k, k_pos, theta=spec.rope_theta,
                        fraction=spec.rope_fraction)
-    return q, _expand_kv(k, H), _expand_kv(v, H)
+    return (act.shard_heads(q, axis=2),
+            act.shard_heads(_expand_kv(k, H), axis=2),
+            act.shard_heads(_expand_kv(v, H), axis=2))
 
 
 def attention(p, x, spec: AttnSpec, *, positions, kv_x=None,
@@ -200,7 +205,7 @@ def attention(p, x, spec: AttnSpec, *, positions, kv_x=None,
 
 def _project_q(p, x, spec: AttnSpec, positions):
     B, S, _ = x.shape
-    q = (x @ p["wq"]).reshape(B, S, spec.n_heads, spec.head_dim)
+    q = act.split_heads(x @ p["wq"], spec.n_heads, spec.head_dim)
     if spec.qk_norm:
         q = rmsnorm(q, p["q_norm"])
     if spec.rope:
@@ -226,14 +231,16 @@ def prefill_attention(p, x, spec: AttnSpec, *, positions, lengths=None):
     B, S, _ = x.shape
     H, KV, hd = spec.n_heads, spec.n_kv_heads, spec.head_dim
     q = _project_q(p, x, spec, positions)
-    k = (x @ p["wk"]).reshape(B, S, KV, hd)
-    v = (x @ p["wv"]).reshape(B, S, KV, hd)
+    k = act.split_heads(x @ p["wk"], KV, hd)
+    v = act.split_heads(x @ p["wv"], KV, hd)
     if spec.qk_norm:
         k = rmsnorm(k, p["k_norm"])
     if spec.rope:
         k = apply_rope(k, positions, theta=spec.rope_theta,
                        fraction=spec.rope_fraction)
-    ke, ve = _expand_kv(k, H), _expand_kv(v, H)
+    q = act.shard_heads(q, axis=2)
+    ke = act.shard_heads(_expand_kv(k, H), axis=2)
+    ve = act.shard_heads(_expand_kv(v, H), axis=2)
     if spec.causal:
         o = kernel_ops.flash_attention(
             q.transpose(1, 2), ke.transpose(1, 2), ve.transpose(1, 2),
@@ -258,9 +265,9 @@ def attention_with_kv(p, x, k, v, spec: AttnSpec, *, positions):
     :func:`kernels.ops.flash_attention` (``spec.impl``)."""
     B, S, _ = x.shape
     H = spec.n_heads
-    q = _project_q(p, x, spec, positions)
-    k = _expand_kv(k.to(q.dtype), H)
-    v = _expand_kv(v.to(q.dtype), H)
+    q = act.shard_heads(_project_q(p, x, spec, positions), axis=2)
+    k = act.shard_heads(_expand_kv(k.to(q.dtype), H), axis=2)
+    v = act.shard_heads(_expand_kv(v.to(q.dtype), H), axis=2)
     o = kernel_ops.flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         causal=False, window=None,
@@ -289,9 +296,9 @@ def _decode_qkv(p, x, q_pos, spec: AttnSpec):
     at ``q_pos (B, 1)``."""
     B = x.shape[0]
     H, KV, hd = spec.n_heads, spec.n_kv_heads, spec.head_dim
-    q = (x @ p["wq"]).reshape(B, 1, H, hd)
-    k_new = (x @ p["wk"]).reshape(B, 1, KV, hd)
-    v_new = (x @ p["wv"]).reshape(B, 1, KV, hd)
+    q = act.split_heads(x @ p["wq"], H, hd)
+    k_new = act.split_heads(x @ p["wk"], KV, hd)
+    v_new = act.split_heads(x @ p["wv"], KV, hd)
     if spec.qk_norm:
         q = rmsnorm(q, p["q_norm"])
         k_new = rmsnorm(k_new, p["k_norm"])
@@ -332,9 +339,9 @@ def decode_attention(p, x, cache, index, spec: AttnSpec, *,
         q, k_new, v_new = _decode_qkv(p, x, q_pos, spec)
         L = cache["k"].shape[1]
         slot = index % L
-        cache["k"][:, slot] = k_new.to(cache["k"].dtype)
-        cache["v"][:, slot] = v_new.to(cache["v"].dtype)
-        cache["pos"][:, slot] = index
+        act.write_index(cache["k"], 1, slot, k_new.to(cache["k"].dtype))
+        act.write_index(cache["v"], 1, slot, v_new.to(cache["v"].dtype))
+        act.write_index(cache["pos"], 1, slot, index)
         k, v, k_pos = cache["k"], cache["v"], cache["pos"]
         valid = (k_pos >= 0) & (k_pos <= index)
         if spec.window is not None:
@@ -343,7 +350,7 @@ def decode_attention(p, x, cache, index, spec: AttnSpec, *,
     # KV expansion
     scale = 1.0 / math.sqrt(hd)
     G = H // KV
-    qg = q.reshape(B, 1, KV, G, hd)
+    qg = act.unshard(q, 1).reshape(B, 1, KV, G, hd)
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg,
                           k.to(q.dtype)).float() * scale
     if spec.logit_softcap:

@@ -72,9 +72,12 @@ def masked_nll(logits, labels):
     logits = logits.float()
     mask = labels >= 0
     safe = labels.clamp_min(0).long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
-    return ((logz - gold) * mask).sum(), mask.sum()
+    # the difference is formed before the trailing dim is dropped: a
+    # gather from vocab-sharded DTensor logits is a masked partial sum
+    # that DTensor can only settle at the gathered shape
+    logz = torch.logsumexp(logits, dim=-1, keepdim=True)
+    gold = torch.gather(logits, -1, safe[..., None])
+    return ((logz - gold)[..., 0] * mask).sum(), mask.sum()
 
 
 def cross_entropy_loss(logits, labels, *, vocab: int):

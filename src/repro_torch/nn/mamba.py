@@ -21,6 +21,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.act import shard_last_dim
+
 #: time-chunk length of the selective scan (the reference's): bounds the
 #: live (B, chunk, d_inner, d_state) float32 tensors to one chunk
 SCAN_CHUNK = 512
@@ -95,6 +97,7 @@ def mamba(p, x, *, d_state: int = 16, d_conv: int = 4,
     din = p["in_proj"].shape[1] // 2
     dt_rank = p["dt_proj"].shape[0]
     xc, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)        # (B, S, din)
+    xc, z = shard_last_dim(xc), shard_last_dim(z)
     # depthwise causal conv1d along time
     xpad = F.pad(xc, (0, 0, d_conv - 1, 0))
     conv_tail = xpad[:, S:]            # the last d_conv-1 pre-conv inputs

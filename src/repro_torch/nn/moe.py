@@ -18,6 +18,9 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.act import (per_expert, shard_batch_act,
+                                      shard_last_dim, shard_moe_group_buffer)
+
 
 def _normal(gen, shape, scale, device, dtype):
     return torch.randn(shape, generator=gen, device=device,
@@ -37,7 +40,7 @@ def init_dense_ffn(gen: torch.Generator, d_model: int, d_ff: int, *,
 
 
 def dense_ffn(p, x):
-    return (F.silu(x @ p["w1"]) * (x @ p["w3"])) @ p["w2"]
+    return shard_last_dim(F.silu(x @ p["w1"]) * (x @ p["w3"])) @ p["w2"]
 
 
 def init_moe(gen: torch.Generator, d_model: int, d_ff: int,
@@ -54,6 +57,14 @@ def init_moe(gen: torch.Generator, d_model: int, d_ff: int,
         "w3": _normal(gen, (E, d_model, d_ff), s_in, device, dtype),
         "w2": _normal(gen, (E, d_ff, d_model), s_out, device, dtype),
     }
+
+
+def _expert_swiglu(buf, w1, w3, w2):
+    """Batched expert SwiGLU over the expert dim: (G, E, C, D) → (G, E,
+    C, D)."""
+    h = F.silu(torch.einsum("gecd,edf->gecf", buf, w1))
+    h = h * torch.einsum("gecd,edf->gecf", buf, w3)
+    return torch.einsum("gecf,efd->gecd", h, w2)
 
 
 def moe_capacity(num_tokens: int, num_experts: int, top_k: int,
@@ -141,11 +152,10 @@ def _moe(p, x, *, top_k: int, capacity_factor: float, impl: str):
         buf = kops.moe_dispatch(x, eid_f, pos, keep.to(torch.float32),
                                 num_experts=E, capacity=C, top_k=K,
                                 impl=impl)
+    buf = shard_moe_group_buffer(buf)
 
-    # batched expert SwiGLU over the expert dim
-    h = F.silu(torch.einsum("gecd,edf->gecf", buf, p["w1"]))
-    h = h * torch.einsum("gecd,edf->gecf", buf, p["w3"])
-    out = torch.einsum("gecf,efd->gecd", h, p["w2"])         # (G, E, C, D)
+    out = shard_moe_group_buffer(
+        per_expert(_expert_swiglu, buf, p["w1"], p["w3"], p["w2"]))
 
     w = (gate.reshape(B, S * K) * keep).to(x.dtype)
     if impl == "ref":
@@ -154,7 +164,7 @@ def _moe(p, x, *, top_k: int, capacity_factor: float, impl: str):
         y = kops.moe_combine(out, eid_f.reshape(B, S, K),
                              safe_pos.reshape(B, S, K), w.reshape(B, S, K),
                              impl=impl)
-    return y, probs, eid_f, keep
+    return shard_batch_act(y), probs, eid_f, keep
 
 
 def moe_forward(p, x, *, top_k: int, capacity_factor: float = 1.25,

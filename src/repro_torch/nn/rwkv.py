@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.nn.base import rmsnorm
+from repro_torch.parallel.act import shard_heads, shard_last_dim
 
 
 def _normal(gen, shape, scale, device, dtype):
@@ -83,9 +84,9 @@ def _projections(p, x, x_prev, H: int, hd: int):
     the gate g (..., D) in x's dtype."""
     xr, xk, xv, xg, xw = _five_streams(p, x, x_prev)
     shape = (*x.shape[:-1], H, hd)
-    r = (xr @ p["wr"]).reshape(shape).float()
-    k = (xk @ p["wk"]).reshape(shape).float()
-    v = (xv @ p["wv"]).reshape(shape).float()
+    r = shard_heads((xr @ p["wr"]).reshape(shape), axis=-2).float()
+    k = shard_heads((xk @ p["wk"]).reshape(shape), axis=-2).float()
+    v = shard_heads((xv @ p["wv"]).reshape(shape), axis=-2).float()
     g = F.silu(xg @ p["wg"])
     # data-dependent decay in (0, 1): w = exp(-exp(base + lora(xw)))
     w = torch.exp(-torch.exp(p["decay_base"] + _lora(p["decay_lora"], xw)))
@@ -140,7 +141,7 @@ def init_channel_mix(gen: torch.Generator, d_model: int, d_ff: int, *,
 def channel_mix(p, x, x_prev):
     xk = x + (x_prev - x) * p["mu_k"]
     xr = x + (x_prev - x) * p["mu_r"]
-    k = torch.square(F.relu(xk @ p["wk"]))
+    k = shard_last_dim(torch.square(F.relu(xk @ p["wk"])))
     return torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"])
 
 

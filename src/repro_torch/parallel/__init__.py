@@ -1,3 +1,4 @@
-"""Parallel building blocks of the port: the parameter-server sparse
-embedding path (``ps``).  The mesh, activation and pipeline layers wait
-for the multi-device slice (ROADMAP.md queue 1 item 12)."""
+"""Parallel building blocks of the port: the reference's sharding rules as
+DTensor placements (``sharding``), activation layouts on an active mesh
+(``act``), the HeterPS stage pipeline (``pipeline``) and the
+parameter-server sparse embedding path (``ps``)."""

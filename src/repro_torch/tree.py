@@ -59,3 +59,20 @@ def tree_map(fn, tree, *rest):
                      *(getattr(r, f.name) for r in rest))
             for f in dataclasses.fields(tree)])
     return fn(tree, *rest)
+
+
+def tree_map_with_path(fn, tree, path: tuple = ()):
+    """``fn(path, leaf)`` over the leaves of ``tree``, keeping the
+    structure; ``path`` is the tuple of dict keys, sequence indices and
+    dataclass field names from the root to the leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map_with_path(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return type(tree)(*[
+            tree_map_with_path(fn, getattr(tree, f.name), path + (f.name,))
+            for f in dataclasses.fields(tree)])
+    return fn(path, tree)

@@ -28,7 +28,11 @@ MODULES = ["repro_torch", "repro_torch.launch.serve",
            "repro_torch.core.schedulers.policy", "repro_torch.core.replan",
            "repro_torch.obs.bridge", "repro_torch.ps.elastic",
            "repro_torch.ps.faults", "repro_torch.ps.snapshot",
-           "repro_torch.models.profile", "repro_torch.configs"]
+           "repro_torch.models.profile", "repro_torch.configs",
+           "repro_torch.roofline", "repro_torch.launch.mesh",
+           "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+           "repro_torch.parallel.sharding", "repro_torch.parallel.act",
+           "repro_torch.parallel.pipeline", "repro_torch.data.pipeline"]
 
 
 @pytest.fixture(scope="module")
@@ -54,6 +58,28 @@ def loaded_after_import():
 @pytest.mark.parametrize("module", MODULES)
 def test_import_loads_no_jax_and_no_reference(loaded_after_import, module):
     assert loaded_after_import[module] == []
+
+
+MESH_MODULES = ["repro_torch.roofline", "repro_torch.launch.mesh",
+                "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+                "repro_torch.parallel.sharding", "repro_torch.parallel.act",
+                "repro_torch.parallel.pipeline", "repro_torch.data.pipeline"]
+
+
+def test_mesh_modules_create_no_process_group():
+    """Importing the multi-device layer touches no process group: a mesh
+    exists only when a caller makes one."""
+    code = ("import importlib, torch.distributed as dist\n"
+            f"for m in {MESH_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "    assert not dist.is_initialized(), m\n"
+            "print('ok')\n")
+    proc = subprocess.run(
+        [sys.executable, "-c", code],
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        capture_output=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr.decode()
+    assert proc.stdout.decode().strip() == "ok"
 
 
 @pytest.mark.parametrize("module", ["repro_torch.ps.server",

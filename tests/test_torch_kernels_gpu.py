@@ -1018,3 +1018,100 @@ def test_ctr_training_on_the_card_equals_the_plain_gather(cuda, mode):
     assert s["devices"] == {"tower": ["cuda:0"], "hot_cache": "cuda:0"}
     if mode == "sync":
         assert s["losses"] == out["ref"]["losses"]
+
+
+# --------------------------------------------------------------------------
+# the multi-device layer: the kernels through ``local_map`` on a 1x1 mesh
+# over NCCL, and the dry run's trace of their fake implementations
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture
+def mesh_1x1(cuda):
+    from repro_torch.launch.mesh import close_process_group, make_smoke_mesh
+
+    mesh = make_smoke_mesh(device_type="cuda", backend="nccl")
+    yield mesh
+    close_process_group()
+
+
+def _on_mesh(mesh, t, placements):
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(t, mesh, placements, src_data_rank=None)
+
+
+def test_flash_through_local_map_is_the_kernel(mesh_1x1):
+    """On a 1x1 mesh the DTensor path launches the same kernels on the one
+    shard: forward and gradients bit-equal, one launch of each entry
+    point."""
+    from torch.distributed.tensor import Shard
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn(2, 4, 256, 64, generator=g, device="cuda")
+               for _ in range(3))
+    want = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = ops.flash_attention(*want, causal=True)
+    gw = torch.autograd.grad(o.sum(), want)
+    pl = [Shard(0), Shard(1)]
+    dq, dk, dv = (_on_mesh(mesh_1x1, t, pl).requires_grad_(True)
+                  for t in (q, k, v))
+    n0 = fk.flash_fwd_cuda.launches, fk.flash_bwd_dq_cuda.launches
+    do = ops.flash_attention(dq, dk, dv, causal=True)
+    gd = torch.autograd.grad(do.sum(), [dq, dk, dv])
+    assert (fk.flash_fwd_cuda.launches - n0[0],
+            fk.flash_bwd_dq_cuda.launches - n0[1]) == (1, 1)
+    assert tuple(do.placements) == tuple(pl)
+    assert torch.equal(do.full_tensor(), o)
+    for a, b in zip(gd, gw):
+        assert torch.equal(a.full_tensor(), b)
+
+
+def test_moe_through_local_map_is_the_kernel(mesh_1x1):
+    from torch.distributed.tensor import Replicate, Shard
+
+    r = np.random.default_rng(11)
+    x = torch.from_numpy(r.standard_normal((4, 64, 128),
+                                           np.float32)).to("cuda")
+    router = torch.from_numpy(r.standard_normal((128, 8),
+                                                np.float32)).to("cuda")
+    C = nn_moe.moe_capacity(64, 8, 2, 1.25)
+    _, _, eid, pos, keep = nn_moe.moe_route(router, x, top_k=2, capacity=C)
+    w = keep.to(torch.float32)
+    want = ops.moe_dispatch(x, eid, pos, w, num_experts=8, capacity=C,
+                            top_k=2)
+    pl = [Shard(0), Replicate()]
+    n0 = mk.moe_dispatch_cuda.launches
+    got = ops.moe_dispatch(*(_on_mesh(mesh_1x1, t, pl)
+                             for t in (x, eid, pos, w)),
+                           num_experts=8, capacity=C, top_k=2)
+    assert mk.moe_dispatch_cuda.launches - n0 == 1
+    assert torch.equal(got.full_tensor(), want)
+
+
+@pytest.fixture
+def fake_cuda_mesh_2x2(cuda):
+    from repro_torch.launch.mesh import close_process_group, make_mesh
+
+    mesh = make_mesh((2, 2), ("data", "model"), device_type="cuda",
+                     backend="fake")
+    yield mesh
+    close_process_group()
+
+
+@pytest.mark.parametrize("shape,want", [("prefill_32k", {"flash_fwd": 2}),
+                                        ("decode_32k", {})])
+def test_dryrun_traces_the_kernels_fake_implementations(fake_cuda_mesh_2x2,
+                                                        shape, want):
+    """The card's program traced on a 2x2 fake mesh (reduced llama3.2-1b,
+    2 layers): the flash forward appears in the prefill's graph as a
+    custom op, one a layer, and its FLOP formula counts; the dense decode
+    has no kernel on its path."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+
+    rec = dryrun.dryrun_one(get_config("llama3.2-1b", reduced=True), shape,
+                            mesh=fake_cuda_mesh_2x2, device="cuda")
+    assert rec["status"] == "ok"
+    assert rec["kernels"] == want
+    assert rec["cost"]["flops"] > 0
