@@ -202,7 +202,26 @@ result lines:
              ``prefill_32k`` on the 16x16 fake-backend mesh with device
              type ``cuda`` (per-device memory, FLOPs, collective bytes,
              H100 roofline terms; the prefill's graph holds the flash
-             kernel's custom op).
+             kernel's custom op);
+19. examples — the five ``repro_torch.examples`` through their ``main``
+             at the reference's defaults with ``--device cuda``, then
+             ``heterps_ctr_pipeline --chaos``, each with the launch counts
+             set to 0 just before and read just after: ``serve_decode``
+             (flash forward, MoE in jamba's reduced layer, paged decode),
+             ``quickstart`` (the fused RL search, then 20 train steps of
+             reduced llama3.2-1b: the flash forward twice and each
+             backward pass once a layer and step), ``schedule_all_archs``
+             (ten fused searches, no kernel), ``observability`` (two
+             shard processes, open-loop serving, 3 trace lanes) and the
+             CTR pipeline (2,000,000 x 32 table on 4 shards, 300 steps,
+             one embedding_bag launch per pull that found the hot cache);
+             their deterministic numbers against the reference's
+             (``REF_*``: shapes, KV bytes, requests, the baselines' costs
+             and plans at rtol 1e-12 / 1e-9, each RL cost against the
+             NumPy ``plan_cost`` of its plan, re-pins and per-shard rows,
+             the chaos drift of exactly 0); then ``python -m
+             repro_torch.examples.serve_decode --device cuda`` as a
+             subprocess.
 
 The scheduler and the elastic fleet have no TPU kernel in the reference
 (``jnp`` under ``jit``; no hot cache on the elastic path), so phases 13-15
@@ -4033,6 +4052,240 @@ def phase_mesh(torch, counters, train_out, train_prof):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 19: the five examples through their ``main``, at their defaults
+# --------------------------------------------------------------------------
+
+#: the reference examples' deterministic numbers at their defaults
+#: (``examples/*.py`` on the CPU, R1 patched).  The baselines' costs and
+#: plans and the CTR stream's per-shard rows are recomputed from the
+#: reference by ``tests/test_torch_examples_sched.py`` and
+#: ``tests/test_torch_examples_ctr.py``; the rest is what the reference
+#: prints.
+REF_SERVE = {"generated_shape": [4, 16], "kv_bytes_per_token": 32768,
+             "kv_ratio_3": 0.605, "requests": 12,
+             "generated": [6, 11, 16] * 4}
+REF_QUICKSTART = {"cost": 9.043678969273163, "plan": [0] + [1] * 15,
+                  "k": [35, 1], "ps_cores": 1}
+#: schedule_all_archs: (Greedy, Heuristic) cost per arch on make_fleet(4)
+REF_ALL_ARCHS = {
+    "jamba-v0.1-52b": (math.inf, math.inf),
+    "rwkv6-7b": (19.25799563593336, 19.447895525561442),
+    "chatglm3-6b": (14.99848027005109, 15.270624446616445),
+    "olmoe-1b-7b": (18.442145611180205, 18.644602466954126),
+    "gemma2-2b": (6.757309379210564, 6.879812426832078),
+    "internlm2-20b": (73.36832509116523, 96.60911274623668),
+    "whisper-large-v3": (3.4337844665673596, 3.49597999986666),
+    "llama3.2-1b": (3.1814720977413504, 3.238976359838448),
+    "qwen3-moe-30b-a3b": (131.77430924028158, math.inf),
+    "llama-3.2-vision-11b": (27.491081883178815, 27.694887262251648),
+}
+REF_CTR = {"repins": 5, "pull_rows": [500026, 498869, 499664, 498241],
+           "push_rows": [239582, 238889, 239437, 238813]}
+REF_CHAOS = {"crashes": 2, "restores": 1,
+             "checkpoints": [4, 9, 14, 19, 24, 29, 34, 39]}
+REF_OBS_LANES = 3
+
+
+def same_cost(got: float, want: float, rtol: float) -> bool:
+    """Equal where infinite, within ``rtol`` elsewhere."""
+    if math.isinf(want):
+        return got == want
+    return math.isclose(got, want, rel_tol=rtol, abs_tol=0.0)
+
+
+def run_example(torch, counters, name, argv):
+    """``repro_torch.examples.<name>.main(argv + --device cuda)`` in this
+    process with every launch count set to 0 just before and read just
+    after; its lines are printed under ``[examples]``.  Returns its
+    result, the launches and the wall seconds."""
+    import contextlib
+    import importlib
+    import io
+
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    for fn in counters.values():
+        fn.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = mod.main([*argv, "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for line in buf.getvalue().splitlines():
+        say("examples", f"{name}: {line}")
+    return out, launches, seconds
+
+
+def check_serve_decode(out, launches):
+    for arch, r in out["archs"].items():
+        check(r["generated_shape"] == REF_SERVE["generated_shape"]
+              and r["tokens_in_vocab"], f"serve_decode {arch}: {r}")
+    p, c = out["paged"], out["continuous"]
+    check(p["generated_shape"] == REF_SERVE["generated_shape"]
+          and p["kv_bytes_per_token"] == REF_SERVE["kv_bytes_per_token"],
+          f"serve_decode paged: {p}")
+    check(c["requests"] == REF_SERVE["requests"]
+          and c["generated"] == REF_SERVE["generated"]
+          and round(c["kv_ratio"], 3) == REF_SERVE["kv_ratio_3"]
+          and c["pool_conserved"], f"serve_decode continuous: {c}")
+    for k in ("flash_fwd", "paged_decode", "moe_dispatch", "moe_combine"):
+        check(launches[k] > 0, f"serve_decode: no {k} launch: {launches}")
+    rates = {a: r["decode_tok_per_s"] for a, r in out["archs"].items()}
+    return (f"decode tok/s {rates}, paged {p['decode_tok_per_s']:.1f}, "
+            f"continuous {c['decode_tok_per_s']:.1f}")
+
+
+def check_quickstart(out, launches):
+    from repro_torch.core import (SchedulingPlan, TrainingJob,
+                                  default_fleet, paper_model_profiles,
+                                  plan_cost)
+
+    for name in ("Greedy", "Heuristic"):
+        r = out["schedulers"][name]
+        check(r["plan"] == REF_QUICKSTART["plan"]
+              and same_cost(r["cost"], REF_QUICKSTART["cost"], 1e-12),
+              f"quickstart {name}: {r}")
+    rl = out["schedulers"]["RL-LSTM"]
+    fleet, job = default_fleet(), TrainingJob()
+    cost, prov = plan_cost(SchedulingPlan(tuple(rl["plan"])),
+                           paper_model_profiles("CTRDNN", fleet), fleet, job)
+    check(same_cost(rl["cost"], cost, 1e-9) and out["k"] == list(prov.k),
+          f"quickstart RL-LSTM: {rl}, NumPy plan_cost {cost} k {prov.k}")
+    check(rl["cost"] <= REF_QUICKSTART["cost"] * (1 + 1e-12),
+          f"quickstart RL-LSTM cost {rl['cost']} above the baselines' "
+          f"{REF_QUICKSTART['cost']}")
+    t = out["train"]
+    check(t["loss_decreased"] and math.isfinite(t["last_loss"]),
+          f"quickstart train: {t}")
+    layers, steps = 2, t["steps"]      # reduced llama3.2-1b
+    want = {"flash_fwd": 2 * layers * steps,
+            "flash_bwd_dkdv": layers * steps, "flash_bwd_dq": layers * steps}
+    check(all(launches[k] == want.get(k, 0) for k in launches),
+          f"quickstart: launches {launches}, expected {want}")
+    return (f"RL {rl['rounds_per_s']:.1f} rounds/s; train "
+            f"{t['seconds'] / steps:.3f} s/step, loss "
+            f"{t['first_loss']:.3f} -> {t['last_loss']:.3f}")
+
+
+def check_schedule_all_archs(out, launches):
+    from repro_torch.core import SchedulingPlan, TrainingJob, plan_cost
+    from repro_torch.core import make_fleet
+    from repro_torch.examples.schedule_all_archs import FLEET_TYPES, JOB
+    from repro_torch.models.profile import profile_arch
+
+    check(set(out["archs"]) == set(REF_ALL_ARCHS),
+          f"schedule_all_archs: archs {sorted(out['archs'])}")
+    fleet, job = make_fleet(FLEET_TYPES), TrainingJob(**JOB)
+    for arch, row in out["archs"].items():
+        gr, he = REF_ALL_ARCHS[arch]
+        check(same_cost(row["greedy_cost"], gr, 1e-9)
+              and same_cost(row["heuristic_cost"], he, 1e-9),
+              f"schedule_all_archs {arch}: Greedy {row['greedy_cost']!r}, "
+              f"Heuristic {row['heuristic_cost']!r}; the reference's "
+              f"{gr!r}, {he!r}")
+        cost, _ = plan_cost(SchedulingPlan(tuple(row["rl_plan"])),
+                            profile_arch(arch, fleet), fleet, job)
+        check(same_cost(row["rl_cost"], cost, 1e-9),
+              f"schedule_all_archs {arch}: RL cost {row['rl_cost']!r}, "
+              f"its plan's NumPy cost {cost!r}")
+    check(not any(launches.values()),
+          f"schedule_all_archs: kernel launches {launches}")
+    rates = [row["rl_rounds_per_s"] for row in out["archs"].values()]
+    return (f"RL {min(rates):.1f}-{max(rates):.1f} rounds/s "
+            f"({len(rates)} searches)")
+
+
+def check_observability(out, launches):
+    from repro_torch import obs
+
+    check(out["lanes"] == REF_OBS_LANES,
+          f"observability: {out['lanes']} process lanes")
+    check(out["generated"] == [4, 8, 4, 4],
+          f"observability: generated {out['generated']}")
+    check(not obs.enabled(), "observability left instrumentation on")
+    for k in ("flash_fwd", "paged_decode"):
+        check(launches[k] > 0, f"observability: no {k} launch: {launches}")
+    return (f"train {out['train_steps_per_sec']:.1f} steps/s; serve "
+            f"{out['decode_tok_per_s']:.1f} tok/s")
+
+
+def check_ctr(out, launches, vocab):
+    check(out["repins"] == REF_CTR["repins"], f"ctr: {out['repins']} "
+          "re-pins")
+    for key in ("pull_rows", "push_rows"):
+        got = [s[key] for s in out["shards"]]
+        check(got == REF_CTR[key], f"ctr {key}: {got}, the reference's "
+              f"{REF_CTR[key]}")
+    t = out["tiers"]
+    check(sum(t.values()) == vocab and 0 < t["device_rows"] <= 4096,
+          f"ctr tiers {t}")
+    check(out["pipeline_devices"] == 1, f"ctr: {out['pipeline_devices']}"
+          " pipeline devices")
+    check(launches["embedding_bag"] == out["hot_pulls"] > 0,
+          f"ctr: embedding_bag launches {launches['embedding_bag']}, hot "
+          f"pulls {out['hot_pulls']}")
+    check(all(math.isfinite(x) for x in out["losses"]), "ctr: a loss is "
+          "not finite")
+    return (f"{out['s_per_step']:.4f} s/step, loss {out['first_loss']:.4f}"
+            f" -> {out['last_loss']:.4f}, hot pulls {out['hot_pulls']}")
+
+
+def check_chaos(out, launches):
+    check(out["drift"] == 0.0 and out["calm_losses"] == out["chaos_losses"],
+          f"ctr --chaos: drift {out['drift']}")
+    got = {k: out[k] for k in REF_CHAOS}
+    check(got == REF_CHAOS, f"ctr --chaos: {got}, the reference's "
+          f"{REF_CHAOS}")
+    return f"drift {out['drift']:.2e}, {out['restores']} restore"
+
+
+def phase_examples(torch, counters):
+    """Phase 19: each of the five examples through its ``main`` at its
+    defaults on the card, then ``heterps_ctr_pipeline --chaos``, each
+    with the launch counts set to 0 just before and read just after and
+    its deterministic numbers held to the reference's; then the
+    ``python -m`` entry of one of them as a subprocess."""
+    import os
+
+    from repro_torch.examples import heterps_ctr_pipeline as ctr
+
+    runs = {}
+    for label, name, argv, chk in (
+            ("serve_decode", "serve_decode", [], check_serve_decode),
+            ("quickstart", "quickstart", [], check_quickstart),
+            ("schedule_all_archs", "schedule_all_archs", [],
+             check_schedule_all_archs),
+            ("observability", "observability", [], check_observability),
+            ("heterps_ctr_pipeline", "heterps_ctr_pipeline", [],
+             functools.partial(check_ctr, vocab=ctr.VOCAB)),
+            ("heterps_ctr_pipeline --chaos", "heterps_ctr_pipeline",
+             ["--chaos"], check_chaos)):
+        out, launches, seconds = run_example(torch, counters, name, argv)
+        what = chk(out, launches)
+        say("examples", f"{label}: {seconds:.1f} s; launches "
+            f"{ {k: n for k, n in launches.items() if n} }; {what}")
+        runs[label] = {"seconds": seconds, "launches": launches}
+        torch.cuda.empty_cache()
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m",
+                           "repro_torch.examples.serve_decode", "--device",
+                           "cuda"], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=300)
+    check(proc.returncode == 0, f"python -m repro_torch.examples."
+          f"serve_decode exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    check(len(lines) == 6 and "pool-conserved=True" in lines[-1],
+          f"python -m repro_torch.examples.serve_decode printed {lines}")
+    say("examples", f"python -m repro_torch.examples.serve_decode --device "
+        f"cuda: exit 0 in {time.perf_counter() - t0:.1f} s; {lines[-1]}")
+    return runs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", metavar="NAME.cu", action="append",
@@ -4179,6 +4432,12 @@ def main(argv=None) -> int:
     mesh = phase_mesh(torch, counters, train_out, train_prof)
     say("mesh", f"phase 18 took {time.perf_counter() - t0:.1f} s")
 
+    # 19. the five examples through their main, at their defaults
+    t0 = time.perf_counter()
+    examples = phase_examples(torch, {**counters,
+                                      "embedding_bag": bk.embedding_bag_cuda})
+    say("examples", f"phase 19 took {time.perf_counter() - t0:.1f} s")
+
     #: the main paths, each run with the counts set to 0 just before it
     #: and read just after; ``launches`` sums them
     main_paths = (("llama3.2-1b serve", llama_launches),
@@ -4191,7 +4450,9 @@ def main(argv=None) -> int:
                   *((f"{a} serve ({r['dtype']}, {r['layers']} layers)",
                      r["launches"]) for a, r in mixers.items()),
                   ("llama3.2-1b train on a 1x1 mesh",
-                   mesh["train"]["launches"]))
+                   mesh["train"]["launches"]),
+                  *((f"example {label}", r["launches"])
+                    for label, r in examples.items()))
     paths = (*main_paths,
              ("llama3.2-1b serve --replan", replan_launches),
              ("olmoe-1b-7b 2-layer train check",
@@ -4276,9 +4537,14 @@ def main(argv=None) -> int:
         "name": "embedding_bag", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
         "replaces": "src/repro/kernels/embedding_bag.py:43",
-        "launches": sum(ctr["launches"].values()),
-        "launches_by_path": {f"ctr train_sparse_ps {m}, {CTR_STEPS} steps": n
-                             for m, n in ctr["launches"].items()},
+        "launches": sum(ctr["launches"].values()) + sum(
+            r["launches"]["embedding_bag"] for r in examples.values()),
+        "launches_by_path": {
+            **{f"ctr train_sparse_ps {m}, {CTR_STEPS} steps": n
+               for m, n in ctr["launches"].items()},
+            **{f"example {label}": r["launches"]["embedding_bag"]
+               for label, r in examples.items()
+               if r["launches"]["embedding_bag"]}},
         "max_abs_err": bag_worst["float32"],
         "max_abs_err_bf16": bag_worst["bfloat16"],
         **{k: t[k] for k in TIMED}, "shape": t["shape"] + " (CTR hot-cache "

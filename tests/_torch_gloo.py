@@ -166,3 +166,29 @@ def shard_offsets_worker(rank, world, shape, specs):
         shape)
     return {str(s): shd.distribute(full, s, mesh).to_local().numpy()
             for s in specs}, tuple(mesh.get_coordinate())
+
+
+def ctr_tower_worker(rank, world, weights, emb, labels):
+    """One step of the CTR example's tower (``tower_loss``) on ``world``
+    gloo stages: the loss and the gradients of the rows, ``in_proj``,
+    every stacked stage leaf and ``head_w``.  The stage leaves' gradients
+    (each rank holds its own stage's row) and the rows' and ``in_proj``'s
+    (only stage 0 reads the microbatches) are summed over the ranks;
+    ``head_w``'s is every rank's own (each computes the loss from the last
+    stage's outputs)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.examples import heterps_ctr_pipeline as ctr
+    from repro_torch.parallel.pipeline import make_stage_mesh
+
+    mesh = make_stage_mesh(world, device_type="cpu")
+    tower = ctr.tower_from_numpy(weights, device="cpu")
+    rows = torch.from_numpy(emb).requires_grad_()
+    loss = ctr.tower_loss(rows, tower["in_proj"], tower["stage_params"],
+                          tower["head_w"], torch.from_numpy(labels), mesh)
+    grads = [g.clone() for g in torch.autograd.grad(
+        loss, [rows, *ctr.dense_params(tower)])]
+    for g in grads[:-1]:
+        dist.all_reduce(g)
+    return loss.item(), [g.numpy() for g in grads]

@@ -32,7 +32,12 @@ MODULES = ["repro_torch", "repro_torch.launch.serve",
            "repro_torch.roofline", "repro_torch.launch.mesh",
            "repro_torch.launch.specs", "repro_torch.launch.dryrun",
            "repro_torch.parallel.sharding", "repro_torch.parallel.act",
-           "repro_torch.parallel.pipeline", "repro_torch.data.pipeline"]
+           "repro_torch.parallel.pipeline", "repro_torch.data.pipeline",
+           "repro_torch.examples", "repro_torch.examples.quickstart",
+           "repro_torch.examples.serve_decode",
+           "repro_torch.examples.schedule_all_archs",
+           "repro_torch.examples.observability",
+           "repro_torch.examples.heterps_ctr_pipeline"]
 
 
 @pytest.fixture(scope="module")
