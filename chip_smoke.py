@@ -1365,7 +1365,11 @@ def device_split(torch, prof, steps: int, label: str, calls=None):
         if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                      "cuLaunchKernelEx", "cudaLaunchKernelExC"):
             launches += e.count
-        if e.device_type != DeviceType.CUDA:
+        # a record_function range (the port's spans while a profiler
+        # records) has a device extent over the kernels it holds: not a
+        # kernel of its own
+        if (e.device_type != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
             continue
         t = e.self_device_time_total
         dev_us += t

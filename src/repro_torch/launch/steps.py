@@ -7,6 +7,7 @@ import torch
 
 from repro_torch.models import decoder as dec
 from repro_torch.models.config import ArchConfig
+from repro_torch.obs.trace import span
 from repro_torch.optim import adamw_init, adamw_update, clip_by_global_norm
 from repro_torch.tree import tree_leaves, tree_unflatten
 
@@ -31,42 +32,58 @@ def make_train_step(cfg: ArchConfig, *, lr: float = 3e-4,
     vision archs) on the parameters' device, and returns
     ``(params, opt_state, {"loss", "grad_norm"})`` with the metrics as
     device scalars.  The update is in place (see
-    :mod:`repro_torch.optim.optimizers`)."""
+    :mod:`repro_torch.optim.optimizers`).
+
+    While :mod:`repro_torch.obs` or a ``torch.profiler`` session records,
+    the step records spans, timed on the device: ``train.step`` (args
+    ``n_micro``, ``batch``, ``seq``) holding ``train.forward`` and
+    ``train.backward`` per microbatch, then ``train.clip`` and
+    ``train.optimizer``."""
 
     def grads_of(params, mb):
         leaves = [t.detach().requires_grad_(True)
                   for t in tree_leaves(params)]
         with torch.enable_grad():
-            loss = dec.loss_fn(tree_unflatten(params, leaves), cfg, mb,
-                               compute_dtype=compute_dtype, remat=remat)
-            grads = torch.autograd.grad(loss, leaves)
+            with span("train.forward", "train"):
+                loss = dec.loss_fn(tree_unflatten(params, leaves), cfg, mb,
+                                   compute_dtype=compute_dtype, remat=remat)
+            # on CUDA the autograd engine runs the backward, and the
+            # checkpointed recompute with it, on a thread of its own: the
+            # spans it opens there have no parent (repro_torch.obs.trace)
+            with span("train.backward", "train"):
+                grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), list(grads)
 
     def train_step(params, opt_state, batch):
-        B = batch["tokens"].shape[0]
+        B, S = batch["tokens"].shape
         m = microbatch or B
         n_micro = max(1, B // m) if B % (m or 1) == 0 else 1
-        if n_micro > 1:
-            size = B // n_micro
-            grads, loss = None, None
-            for i in range(n_micro):
-                mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
-                l_i, g_i = grads_of(params, mb)
-                if grads is None:
-                    grads, loss = g_i, l_i
-                else:
-                    for acc, g in zip(grads, g_i):
-                        acc.add_(g)
-                    loss = loss + l_i
-            for g in grads:
-                g.div_(n_micro)
-            loss = loss / n_micro
-        else:
-            loss, grads = grads_of(params, batch)
-        grads, gnorm = clip_by_global_norm(tree_unflatten(params, grads),
-                                           clip)
-        params, opt_state = adamw_update(params, grads, opt_state, lr=lr,
-                                         weight_decay=weight_decay)
+        with span("train.step", "train", n_micro=n_micro, batch=B, seq=S):
+            if n_micro > 1:
+                size = B // n_micro
+                grads, loss = None, None
+                for i in range(n_micro):
+                    mb = {k: v[i * size:(i + 1) * size]
+                          for k, v in batch.items()}
+                    l_i, g_i = grads_of(params, mb)
+                    if grads is None:
+                        grads, loss = g_i, l_i
+                    else:
+                        for acc, g in zip(grads, g_i):
+                            acc.add_(g)
+                        loss = loss + l_i
+                for g in grads:
+                    g.div_(n_micro)
+                loss = loss / n_micro
+            else:
+                loss, grads = grads_of(params, batch)
+            with span("train.clip", "train"):
+                grads, gnorm = clip_by_global_norm(
+                    tree_unflatten(params, grads), clip)
+            with span("train.optimizer", "train"):
+                params, opt_state = adamw_update(
+                    params, grads, opt_state, lr=lr,
+                    weight_decay=weight_decay)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
     return train_step

@@ -45,7 +45,6 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.data import PrefetchLoader, SyntheticTokenDataset
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import init_train_state, make_train_step
-from repro_torch.obs import trace as obs_trace
 from repro_torch.tree import tree_leaves
 
 
@@ -84,13 +83,12 @@ def train(arch, *, reduced: bool = True, steps: int = 50, batch: int = 8,
             batch_np = next(loader)
             reg.histogram("train.data_s").record(time.perf_counter() - td)
             ts = time.perf_counter()
-            with obs_trace.span("train.step", "train", step=i):
-                tbatch = {k: torch.from_numpy(v).to(dev)
-                          for k, v in batch_np.items()}
-                params, opt_state, metrics = step_fn(params, opt_state,
-                                                     tbatch)
-                # float() syncs the step: the histogram sees its real time
-                losses.append(float(metrics["loss"]))
+            tbatch = {k: torch.from_numpy(v).to(dev)
+                      for k, v in batch_np.items()}
+            # the step records its own ``train.step`` span
+            params, opt_state, metrics = step_fn(params, opt_state, tbatch)
+            # float() syncs the step: the histogram sees its real time
+            losses.append(float(metrics["loss"]))
             reg.histogram("train.step_s").record(time.perf_counter() - ts)
             gnorms.append(float(metrics["grad_norm"]))
             if log_every and (i % log_every == 0 or i == steps - 1):

@@ -51,6 +51,7 @@ from repro_torch.nn import moe as moe_mod
 from repro_torch.nn import rwkv as rwkv_mod
 from repro_torch.nn.attention import AttnSpec
 from repro_torch.nn.base import layernorm, masked_nll, rmsnorm, softcap
+from repro_torch.obs.trace import span
 from repro_torch.parallel import act
 from repro_torch.tree import tree_map as _tree_map
 
@@ -433,13 +434,30 @@ def _arange_positions(B: int, S: int, device):
 # --------------------------------------------------------------------------
 
 
-def _apply_layer(cfg, spec: LayerSpec, p, x, *, positions, cross_kv=None,
-                 causal=True):
+def _apply_layer(cfg, spec: LayerSpec, p, x, *, positions, layer: int,
+                 cross_kv=None, causal=True):
     """One training / encoder layer: the mixer (attention through the
     flash kernels, ``cfg.attn_impl``; cross-attention non-causal over
-    ``cross_kv`` (B, N, D)) then the FFN.  Returns (x, moe_aux) with
-    moe_aux a float32 scalar tensor."""
+    ``cross_kv`` (B, N, D)) then the FFN, in the device-timed spans
+    ``layer.mixer`` and ``layer.ffn`` (args ``layer``, the index, and
+    ``kind``).  Returns (x, moe_aux) with moe_aux a float32 scalar
+    tensor."""
     p = act.gather_params(_cast(p, x.dtype), cfg)
+    with span("layer.mixer", "model", layer=layer, kind=spec.mixer):
+        x = _mixer_block(cfg, spec, p, x, positions=positions,
+                         cross_kv=cross_kv, causal=causal)
+    with span("layer.ffn", "model", layer=layer, kind=spec.ffn):
+        x, aux = _ffn_block(cfg, spec, p, x, with_aux=True)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
+
+
+def _mixer_block(cfg, spec: LayerSpec, p, x, *, positions, cross_kv,
+                 causal):
+    """norm1 → the training layer's mixer → (post-norm) → residual (an
+    ``attn+cross`` layer: its self-attention, then the cross-attention,
+    each with its residual)."""
     h = _norm(cfg, p["norm1"], x)
     if spec.mixer in ("cross_attn", "attn+cross"):
         kv_pos = _arange_positions(*cross_kv.shape[:2], x.device)
@@ -467,10 +485,7 @@ def _apply_layer(cfg, spec: LayerSpec, p, x, *, positions, cross_kv=None,
         y = rwkv_mod.time_mix(p["mixer"], h, head_size=cfg.rwkv_head_size)
     if spec.post_norm and spec.mixer != "attn+cross":
         y = _norm(cfg, p["norm_post1"], y)
-    x, aux = _ffn_block(cfg, spec, p, x + y, with_aux=True)
-    if aux is None:
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x, aux
+    return x + y
 
 
 def _run_blocks(params, cfg: ArchConfig, x, *, positions, cross_kv=None,
@@ -479,15 +494,16 @@ def _run_blocks(params, cfg: ArchConfig, x, *, positions, cross_kv=None,
     stacked blocks).  With ``remat`` each layer is checkpointed
     (``torch.utils.checkpoint``, non-reentrant): its activations are
     recomputed, one layer at a time, in the backward pass, so the forward
-    kernels of a layer run twice per training step.  Returns
-    (x, summed moe_aux)."""
+    kernels of a layer, and its ``layer.*`` spans, run twice per training
+    step.  Returns (x, summed moe_aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for r in range(cfg.repeats):
         p_r = _layer_views(params["blocks"], r)
         for j, spec in enumerate(cfg.pattern):
-            def layer(x, cross_kv, _p=p_r[j], _spec=spec):
+            def layer(x, cross_kv, _p=p_r[j], _spec=spec,
+                      _i=r * len(cfg.pattern) + j):
                 return _apply_layer(cfg, _spec, _p, x, positions=positions,
-                                    cross_kv=cross_kv)
+                                    layer=_i, cross_kv=cross_kv)
 
             if remat:
                 x, a = checkpoint(layer, x, cross_kv, use_reentrant=False)
@@ -507,9 +523,9 @@ def _encode(params, cfg: ArchConfig, context, *, remat=True):
     x = context + enc["pos"][:context.shape[1]].to(context.dtype)
     positions = _arange_positions(*x.shape[:2], x.device)
     for r in range(cfg.encoder.num_layers):
-        def layer(x, _p=_layer_views(enc["blocks"], r)):
+        def layer(x, _p=_layer_views(enc["blocks"], r), _r=r):
             return act.shard_batch_act(_apply_layer(
-                cfg, ENCODER_LAYER, _p, x, positions=positions,
+                cfg, ENCODER_LAYER, _p, x, positions=positions, layer=_r,
                 causal=False)[0])
 
         x = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
@@ -579,23 +595,26 @@ def loss_fn(params, cfg: ArchConfig, batch, *, compute_dtype=torch.bfloat16,
     and vision archs), plus ``MOE_AUX_COEF · aux / num_layers`` for MoE
     archs.  The head runs over chunks of ``LOSS_CHUNK`` positions (when S
     is a multiple above it), each checkpointed so its (B, chunk, vocab)
-    logits are recomputed in the backward pass instead of kept.  The
+    logits are recomputed in the backward pass instead of kept; the
+    forward's head and NLL are the device-timed span ``loss.head``.  The
     attention follows ``cfg.attn_impl``, the MoE ``cfg.moe_impl``."""
     x, aux = _hidden(params, cfg, batch["tokens"],
                      context=batch.get("context"),
                      compute_dtype=compute_dtype, remat=remat)
-    head = _head_weight(params, cfg, compute_dtype)
     labels = batch["labels"]
     S = x.shape[1]
     C = LOSS_CHUNK if (S % LOSS_CHUNK == 0 and S > LOSS_CHUNK) else S
-    nll = torch.zeros((), dtype=torch.float32, device=x.device)
-    n = torch.zeros((), dtype=torch.int64, device=x.device)
-    for c in range(S // C):
-        sl = slice(c * C, (c + 1) * C)
-        nll_c, n_c = checkpoint(_chunk_nll, x[:, sl], labels[:, sl], head,
-                                cfg.final_softcap, use_reentrant=False)
-        nll, n = nll + nll_c, n + n_c
-    loss = nll / n.clamp_min(1)
+    with span("loss.head", "model"):
+        head = _head_weight(params, cfg, compute_dtype)
+        nll = torch.zeros((), dtype=torch.float32, device=x.device)
+        n = torch.zeros((), dtype=torch.int64, device=x.device)
+        for c in range(S // C):
+            sl = slice(c * C, (c + 1) * C)
+            nll_c, n_c = checkpoint(_chunk_nll, x[:, sl], labels[:, sl],
+                                    head, cfg.final_softcap,
+                                    use_reentrant=False)
+            nll, n = nll + nll_c, n + n_c
+        loss = nll / n.clamp_min(1)
     if cfg.has_moe:
         loss = loss + MOE_AUX_COEF * aux / cfg.num_layers
     return loss

@@ -13,11 +13,13 @@ oracle.  The expert SwiGLU itself is three batched matrix products.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.obs.trace import span
 from repro_torch.parallel.act import (per_expert, shard_batch_act,
                                       shard_last_dim, shard_moe_group_buffer)
 
@@ -131,39 +133,52 @@ def ref_combine(buf, eid_f, safe_pos, w, *, top_k: int):
     return (y_f * w[..., None].to(y_f.dtype)).reshape(G, S, K, D).sum(2)
 
 
-def _moe(p, x, *, top_k: int, capacity_factor: float, impl: str):
+def _no_span(name, cat):
+    return contextlib.nullcontext()
+
+
+def _moe(p, x, *, top_k: int, capacity_factor: float, impl: str,
+         spans: bool):
     """Route, dispatch, expert SwiGLU and combine: ``(y, probs, eid_f,
-    keep)``, the routing kept for :func:`moe_ffn`'s aux terms."""
+    keep)``, the routing kept for :func:`moe_ffn`'s aux terms.  With
+    ``spans`` (training) each stage is a span: ``moe.route``,
+    ``moe.dispatch``, ``moe.experts``, ``moe.combine``; serving's decode
+    steps, which the host bounds, record none."""
     B, S, D = x.shape
     E = p["router"].shape[1]
     K = top_k
     C = moe_capacity(S, E, K, capacity_factor)               # per group
+    stage = span if spans else _no_span
 
-    probs, gate, eid_f, pos, keep = moe_route(p["router"], x, top_k=K,
-                                              capacity=C)
-    safe_pos = torch.where(keep, pos, 0)
+    with stage("moe.route", "model"):
+        probs, gate, eid_f, pos, keep = moe_route(p["router"], x, top_k=K,
+                                                  capacity=C)
+        safe_pos = torch.where(keep, pos, 0)
 
-    if impl == "ref":
-        buf = ref_dispatch(x, eid_f, safe_pos, keep, num_experts=E,
-                           capacity=C, top_k=K)              # (G, E, C, D)
-    else:
-        from repro_torch.kernels import ops as kops
+    with stage("moe.dispatch", "model"):
+        if impl == "ref":
+            buf = ref_dispatch(x, eid_f, safe_pos, keep, num_experts=E,
+                               capacity=C, top_k=K)          # (G, E, C, D)
+        else:
+            from repro_torch.kernels import ops as kops
 
-        buf = kops.moe_dispatch(x, eid_f, pos, keep.to(torch.float32),
-                                num_experts=E, capacity=C, top_k=K,
-                                impl=impl)
-    buf = shard_moe_group_buffer(buf)
+            buf = kops.moe_dispatch(x, eid_f, pos, keep.to(torch.float32),
+                                    num_experts=E, capacity=C, top_k=K,
+                                    impl=impl)
+        buf = shard_moe_group_buffer(buf)
 
-    out = shard_moe_group_buffer(
-        per_expert(_expert_swiglu, buf, p["w1"], p["w3"], p["w2"]))
+    with stage("moe.experts", "model"):
+        out = shard_moe_group_buffer(
+            per_expert(_expert_swiglu, buf, p["w1"], p["w3"], p["w2"]))
 
-    w = (gate.reshape(B, S * K) * keep).to(x.dtype)
-    if impl == "ref":
-        y = ref_combine(out, eid_f, safe_pos, w, top_k=K)
-    else:
-        y = kops.moe_combine(out, eid_f.reshape(B, S, K),
-                             safe_pos.reshape(B, S, K), w.reshape(B, S, K),
-                             impl=impl)
+    with stage("moe.combine", "model"):
+        w = (gate.reshape(B, S * K) * keep).to(x.dtype)
+        if impl == "ref":
+            y = ref_combine(out, eid_f, safe_pos, w, top_k=K)
+        else:
+            y = kops.moe_combine(out, eid_f.reshape(B, S, K),
+                                 safe_pos.reshape(B, S, K),
+                                 w.reshape(B, S, K), impl=impl)
     return shard_batch_act(y), probs, eid_f, keep
 
 
@@ -172,7 +187,7 @@ def moe_forward(p, x, *, top_k: int, capacity_factor: float = 1.25,
     """x: (B, S, D) → y (B, S, D): :func:`moe_ffn` without the aux-loss
     terms, which serving never reads (so it never computes them)."""
     return _moe(p, x, top_k=top_k, capacity_factor=capacity_factor,
-                impl=impl)[0]
+                impl=impl, spans=False)[0]
 
 
 def moe_ffn(p, x, *, top_k: int, capacity_factor: float = 1.25,
@@ -185,7 +200,8 @@ def moe_ffn(p, x, *, top_k: int, capacity_factor: float = 1.25,
     scatter/gather oracle; ``auto``/``slot``/``cuda`` route the data
     movement through :mod:`repro_torch.kernels.ops`."""
     y, probs, eid_f, keep = _moe(p, x, top_k=top_k,
-                                 capacity_factor=capacity_factor, impl=impl)
+                                 capacity_factor=capacity_factor, impl=impl,
+                                 spans=True)
     B, S, _ = x.shape
     E = p["router"].shape[1]
 

@@ -1,5 +1,16 @@
-"""Tracing + metrics spine of the port (copy of the parts of ``repro.obs``
-the serve path uses; stdlib only).
+"""Tracing + metrics spine of the port (grown from the parts of
+``repro.obs`` the serve path uses; stdlib only).
+
+An operator uses it in two ways:
+
+* ``REPRO_OBS=1`` (or :func:`configure`, or a CLI's ``--obs-dir``) for a
+  whole run: every span and metric records, and :func:`flush` writes the
+  run directory's ``trace.json`` and ``metrics.jsonl``;
+* a ``torch.profiler`` trace: while a profiler session records, the
+  port's spans record too, with obs off — each as a ``record_function``
+  range in the profiler's own trace and as an event in :data:`BUFFER`.
+  Once the process uses CUDA, every span also carries its device time
+  (``args["device_ms"]``, see :mod:`repro_torch.obs.trace`).
 
 * :func:`configure` — enable/disable instrumentation and pick a run
   directory; sets ``REPRO_OBS`` so processes spawned afterwards inherit
