@@ -64,12 +64,13 @@ result lines:
 6. profile — host clock vs profiled device time of full-width llama
              decode steps (device idle share, launches per step);
 7. moe     — the same mix served by olmoe-1b-7b at full width (16 layers,
-             64 experts, top-8, float32), counting launches (MoE kernels
-             16 per decode step and per prefill, paged decode 16 per
-             decode step), a teacher-forced prefill and ``decode_step``
-             through the kernels against the plain versions, and a
-             profiled decode step and a profiled 512-token prefill split
-             by kernel, with each MoE kernel's time per call in them;
+             64 experts, top-8, float32), counting launches (MoE kernels,
+             the position kernel with them, 16 per decode step and per
+             prefill, paged decode 16 per decode step), a teacher-forced
+             prefill and ``decode_step`` through the kernels against the
+             plain versions, and a profiled decode step and a profiled
+             512-token prefill split by kernel, with each MoE kernel's
+             time per call in them;
 8. train   — ``train("llama3.2-1b", reduced=False)`` on the card, float32
              with AdamW state on the card: 3 steps of 8 x 2048 tokens in
              microbatches of 4, counting the flash launches of every layer
@@ -113,7 +114,11 @@ result lines:
              shapes: paged decode at the three attention archs' decode
              shapes, the flash forward and backward at the whisper encoder
              and the two cross-attention shapes (non-causal; SDPA), MoE at
-             jamba-v0.1-52b's decode and prefill in bfloat16;
+             jamba-v0.1-52b's decode and prefill in bfloat16; the MoE
+             position-in-expert kernel at olmoe-1b-7b's training (8 x
+             2,048 tokens) and decode shapes and qwen3-moe-30b-a3b's
+             prefill, bit-equal to the one-hot cumsum, beside it and the
+             bare ``cumsum`` of the one-hot;
 13. sched  — the paper's Table-3 cases (MATCHNET, CTRDNN, 2EMB and NCE
              on the CPU + V100 fleet, MATCHNET on 32 resource types) in one
              ``RLScheduler().schedule_many`` call on the card (150 rounds x
@@ -1283,7 +1288,7 @@ def phase_moe(torch, counters):
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     out, launches = counted_serve(torch, counters, "olmoe-1b-7b", params)
     steps, pre, layers = out["decode_steps"], out["prefills"], cfg.num_layers
-    for name in ("moe_dispatch", "moe_combine"):
+    for name in ("moe_dispatch", "moe_combine", "moe_positions"):
         check(launches[name] == layers * (steps + pre),
               f"{name} launches {launches[name]} != {layers} x ({steps} "
               f"decode steps + {pre} prefills)")
@@ -1291,7 +1296,8 @@ def phase_moe(torch, counters):
           f"paged_decode launches {launches['paged_decode']} != {layers} x "
           f"{steps} steps")
     check_prefill_flash(launches, layers, pre, "olmoe-1b-7b")
-    say("moe", f"launches: moe_dispatch = moe_combine = {layers} x ({steps} "
+    say("moe", f"launches: moe_dispatch = moe_combine = moe_positions = "
+        f"{layers} x ({steps} "
         f"+ {pre}) = {launches['moe_dispatch']}, paged_decode = {layers} x "
         f"{steps} = {launches['paged_decode']}")
 
@@ -1322,7 +1328,8 @@ def phase_moe(torch, counters):
                             compute_dtype=torch.float32, impl="gather")
     torch.cuda.synchronize()
     check(all(counters[k].launches - n0[k] == layers
-              for k in ("paged_decode", "moe_dispatch", "moe_combine")),
+              for k in ("paged_decode", "moe_dispatch", "moe_combine",
+                        "moe_positions")),
           "decode_step did not launch every decode kernel in every layer")
     check(bool(torch.isfinite(da).all()), "non-finite olmoe decode logits")
     errs.append((da - db).abs().max().item())
@@ -1344,6 +1351,7 @@ PROFILE_SPLIT = (("embedding_bag", ("embedding_bag",)),
                  ("paged_decode", ("paged_decode",)),
                  ("moe_dispatch", ("dispatch_kernel",)),
                  ("moe_combine", ("combine_kernel",)),
+                 ("moe_positions", ("positions_kernel",)),
                  ("flash_fwd", ("fwd_kernel",)),
                  ("flash_bwd", ("dkdv_kernel", "delta_kernel", "dq_kernel")),
                  ("matmul", ("gemm", "gemv", "nvjet")),
@@ -1414,7 +1422,8 @@ def profile_split(torch, run, label: str, what: str, steps: int):
         f"device busy {dev_ms:.3f} ms/step ({parts}); device idle share "
         f"{idle:.3f}; {launches:.0f} kernel launches/step")
     per_call = {n: split[n] * steps / calls[n] for n in ("moe_dispatch",
-                                                         "moe_combine")
+                                                         "moe_combine",
+                                                         "moe_positions")
                 if calls[n]}
     if per_call:
         say("profile", f"{label} {what}, time per call: " + ", ".join(
@@ -1579,7 +1588,8 @@ def phase_teacher(torch, counters, runs=TEACHER_RUNS, phase="teacher"):
                 "flash_bwd_dq": cfg.num_layers}
         if cfg.has_moe:
             want.update(moe_dispatch=3 * cfg.num_layers,
-                        moe_combine=3 * cfg.num_layers)
+                        moe_combine=3 * cfg.num_layers,
+                        moe_positions=2 * cfg.num_layers)
         check(all(launched[k] == want.get(k, 0) for k in counters),
               f"{arch}: kernel launches {launched}, expected {want}")
         check(math.isfinite(loss_k) and all(bool(torch.isfinite(g).all())
@@ -2204,6 +2214,64 @@ def phase_moe_timing(torch, mk, earlier=None):
             say("timing", f"{name} at {shape} {dname}: kernel {kern:.4f} ms, "
                 f"bound {bound:.4f} ms, plain version {plain_ms:.4f} ms, "
                 f"embedding_bag {lib_ms:.4f} ms")
+    return res
+
+
+#: (shape, G, S, K, E): olmoe-1b-7b's training step (the benchmark cell's
+#: 8 routing groups of 2,048 tokens), its decode (4 slots, one token each)
+#: and qwen3-moe-30b-a3b's 512-token prefill
+POSITIONS_TIMED = (("olmoe train", 8, 2048, 8, 64),
+                   ("olmoe decode", 4, 1, 8, 64),
+                   ("qwen3 prefill", 1, 512, 8, 128))
+
+
+def phase_positions_timing(torch, mk):
+    """The position-in-expert kernel at POSITIONS_TIMED's shapes, on the
+    top-k ids of random router probabilities as ``moe_route`` hands them
+    over (int64, as ``torch.sort`` leaves them): bit-equal to the plain
+    version, then timed by :func:`time_turns` (median, min and p90 of its
+    cold calls, its warm time) beside the empty-kernel floor, the least
+    bytes (the ids read, the positions and flags written, once) at 3.35
+    TB/s, the plain version's time (the one-hot ``cumsum``) and, as the
+    library call, the bare ``cumsum`` of the one-hot, built before the
+    timer starts."""
+    from repro_torch.nn import moe as nn_moe
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    floor = spread(time_cold(torch, torch.cuda._sleep, (0,), flush))
+    res = {"floor": floor}
+    for shape, G, S, K, E in POSITIONS_TIMED:
+        g = torch.Generator(device="cuda")
+        g.manual_seed(13)
+        probs = torch.softmax(torch.randn((G, S, E), generator=g,
+                                          device="cuda"), dim=-1)
+        eid = nn_moe._top_k(probs, K)[1].reshape(G, S * K)
+        C = nn_moe.moe_capacity(S, E, K)
+
+        def plain(e, C=C, E=E):
+            return mk.positions_cumsum(e, capacity=C, num_experts=E)
+
+        got, want = mk.moe_positions_cuda(eid, C, E), plain(eid)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"moe_positions at {shape}: not bit-equal to the cumsum")
+        tt = time_turns(torch, mk.moe_positions_cuda, (eid, C, E), flush)
+        nbytes = eid.numel() * (eid.element_size() + 4 + 1)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        plain_ms = time_cold_ms(torch, plain, (eid,), flush)
+        onehot = torch.nn.functional.one_hot(eid, E)
+        lib_ms = time_cold_ms(torch, lambda t: t.cumsum(dim=1), (onehot,),
+                              flush)
+        del onehot
+        res[shape] = dict(ms=tt["this"]["median"], plain_ms=plain_ms,
+                          bound_ms=bound, bound_by="bytes",
+                          library_ms=lib_ms, bytes=nbytes, spread=tt["this"])
+        say("timing", f"moe_positions at {shape} G{G} S{S} K{K} E{E} C{C} "
+            f"int64 ids: kernel {fmt_spread(tt['this'])}, warm "
+            f"{tt['this']['warm']:.4f} ms; turn medians {tt['turns']}; "
+            f"empty-kernel floor {floor['median']:.4f} ms, bound "
+            f"{bound:.6f} ms (bytes: {nbytes}); plain version (one-hot "
+            f"cumsum) {plain_ms:.4f} ms, bare cumsum {lib_ms:.4f} ms; "
+            "bit-equal")
     return res
 
 
@@ -3101,7 +3169,8 @@ def arch_teacher(torch, counters, arch, params, dt):
     torch.cuda.synchronize()
     want = {"paged_decode": layers}
     if cfg.has_moe:
-        want.update(moe_dispatch=layers, moe_combine=layers)
+        want.update(moe_dispatch=layers, moe_combine=layers,
+                    moe_positions=layers)
     launched = {k: n1[k] - n0[k] for k in counters}
     check(all(launched[k] == want.get(k, 0) for k in counters),
           f"{arch} teacher-forced decode_step: launches {launched}, "
@@ -3169,9 +3238,11 @@ def phase_archs(torch, counters):
               f"{layers} x {steps} steps")
         check_prefill_flash(launches, layers, pre, arch, phase="archs")
         moe = layers * (steps + pre) if cfg.has_moe else 0
-        check(launches["moe_dispatch"] == launches["moe_combine"] == moe,
+        check(launches["moe_dispatch"] == launches["moe_combine"]
+              == launches["moe_positions"] == moe,
               f"{arch}: MoE launches {launches['moe_dispatch']} / "
-              f"{launches['moe_combine']} != {moe}")
+              f"{launches['moe_combine']} / {launches['moe_positions']} != "
+              f"{moe}")
         peak = torch.cuda.max_memory_allocated() / 1e9
         state, teacher = arch_teacher(torch, counters, arch, params, dt)
         prof = phase_profile(torch, state, arch, compute_dtype=dt)
@@ -3254,7 +3325,8 @@ def phase_olmoe_train(torch, counters):
     check(all(fn.launches == n1[k] for k, fn in counters.items()),
           "olmoe-1b-7b: the plain loss_fn launched a kernel")
     check(n1["flash_bwd_dq"] - n0["flash_bwd_dq"] == layers
-          and n1["moe_combine"] - n0["moe_combine"] == 3 * layers,
+          and n1["moe_combine"] - n0["moe_combine"] == 3 * layers
+          and n1["moe_positions"] - n0["moe_positions"] == 2 * layers,
           f"olmoe-1b-7b: the kernel loss_fn launched "
           f"{ {k: n1[k] - n0[k] for k in counters} }")
     dloss, dnorm = abs(loss_k - loss_r), abs(norm_k - norm_r)
@@ -3286,7 +3358,7 @@ def phase_olmoe_train(torch, counters):
     peak = torch.cuda.max_memory_allocated() / 1e9
     per_step = {"flash_fwd": 2 * layers, "flash_bwd_dkdv": layers,
                 "flash_bwd_dq": layers, "moe_dispatch": 3 * layers,
-                "moe_combine": 3 * layers}
+                "moe_combine": 3 * layers, "moe_positions": 2 * layers}
     check(all(launches[k] == steps * per_step.get(k, 0) for k in counters),
           f"olmoe-1b-7b train: launches {launches}, expected {steps} x "
           f"{per_step}")
@@ -3397,7 +3469,7 @@ def mixer_teacher(torch, counters, cfg, params, dt):
                                 impl="gather")
     torch.cuda.synchronize()
     expect = {"paged_decode": n["self"], "moe_dispatch": n["moe"],
-              "moe_combine": n["moe"]}
+              "moe_combine": n["moe"], "moe_positions": n["moe"]}
     launched = {k: n1[k] - n0[k] for k in counters}
     check(all(launched[k] == expect.get(k, 0) for k in counters),
           f"{cfg.name} teacher-forced decode_step: launches {launched}, "
@@ -3551,7 +3623,8 @@ def phase_mixers(torch, counters):
         want = {"paged_decode": n["self"] * steps,
                 "flash_fwd": (n["self"] + n["cross"]) * pre,
                 "moe_dispatch": n["moe"] * (steps + pre),
-                "moe_combine": n["moe"] * (steps + pre)}
+                "moe_combine": n["moe"] * (steps + pre),
+                "moe_positions": n["moe"] * (steps + pre)}
         check(all(launches[k] == want.get(k, 0) for k in counters),
               f"{arch}: launches {launches}, expected {want} ({steps} "
               f"decode steps, {pre} prefills, layers {n})")
@@ -3672,7 +3745,7 @@ def phase_mixer_teacher(torch, counters):
                                           if cfg.encoder else 0)
         want = {"flash_fwd": 2 * calls, "flash_bwd_dkdv": calls,
                 "flash_bwd_dq": calls, "moe_dispatch": 3 * n["moe"],
-                "moe_combine": 3 * n["moe"]}
+                "moe_combine": 3 * n["moe"], "moe_positions": 2 * n["moe"]}
         check(all(launched[k] == want.get(k, 0) for k in counters),
               f"{arch}: kernel launches {launched}, expected {want}")
         check(math.isfinite(loss_k) and all(bool(torch.isfinite(g).all())
@@ -3881,7 +3954,7 @@ def mesh_moe(torch, counters, mesh):
     layers = cfg.num_layers
     want = {"flash_fwd": 2 * layers, "flash_bwd_dkdv": layers,
             "flash_bwd_dq": layers, "moe_dispatch": 3 * layers,
-            "moe_combine": 3 * layers}
+            "moe_combine": 3 * layers, "moe_positions": 2 * layers}
     check(all(launches[k] == want.get(k, 0) for k in counters),
           f"mesh moe: launches {launches}, expected {want}")
     held_loss = _held(torch, "olmoe loss", [(loss_m, loss_u)],
@@ -4134,7 +4207,8 @@ def check_serve_decode(out, launches):
           and c["generated"] == REF_SERVE["generated"]
           and round(c["kv_ratio"], 3) == REF_SERVE["kv_ratio_3"]
           and c["pool_conserved"], f"serve_decode continuous: {c}")
-    for k in ("flash_fwd", "paged_decode", "moe_dispatch", "moe_combine"):
+    for k in ("flash_fwd", "paged_decode", "moe_dispatch", "moe_combine",
+              "moe_positions"):
         check(launches[k] > 0, f"serve_decode: no {k} launch: {launches}")
     rates = {a: r["decode_tok_per_s"] for a, r in out["archs"].items()}
     return (f"decode tok/s {rates}, paged {p['decode_tok_per_s']:.1f}, "
@@ -4340,6 +4414,7 @@ def main(argv=None) -> int:
     counters = {"paged_decode": pk.paged_decode_cuda,
                 "moe_dispatch": mk.moe_dispatch_cuda,
                 "moe_combine": mk.moe_combine_cuda,
+                "moe_positions": mk.moe_positions_cuda,
                 "flash_fwd": fk.flash_fwd_cuda,
                 "flash_bwd_dkdv": fk.flash_bwd_dkdv_cuda,
                 "flash_bwd_dq": fk.flash_bwd_dq_cuda}
@@ -4401,6 +4476,7 @@ def main(argv=None) -> int:
     # 12. timing
     timing = phase_timing(torch, pk)
     moe_timing = phase_moe_timing(torch, mk, earlier("moe"))
+    pos_timing = phase_positions_timing(torch, mk)
     flash_timing = phase_flash_timing(torch, fk)
     bag_timing = phase_bag_timing(torch, bk, earlier("embedding_bag"))
     torch.cuda.empty_cache()
@@ -4508,6 +4584,27 @@ def main(argv=None) -> int:
             "in_path_ms": {what: prof["per_call"].get(kname)
                            for what, prof in moe_in_path.items()},
         })
+    t = pos_timing
+    kernels.append({
+        "name": "moe_positions", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe.cu",
+        "replaces": "no TPU kernel: jnp.cumsum in src/repro/nn/moe.py:76",
+        "launches": on_main["moe_positions"],
+        "launches_by_path": by_path["moe_positions"],
+        "max_abs_err": 0,
+        **{k: t["olmoe train"][k] for k in TIMED},
+        "shape": "olmoe-1b-7b training, G8 S2048 K8 E64 C320, int64 ids",
+        **{shape.replace(" ", "_"): {k: t[shape][k] for k in TIMED}
+           for shape in ("olmoe decode", "qwen3 prefill")},
+        # median / min / p90 of the cold calls and the warm time, the
+        # empty-kernel floor, and the time per call in the olmoe decode
+        # and prefill profiles
+        "spread": {shape: t[shape]["spread"] for shape, *_ in
+                   POSITIONS_TIMED},
+        "floor_ms": t["floor"]["median"],
+        "in_path_ms": {what: prof["per_call"].get("moe_positions")
+                       for what, prof in moe_in_path.items()},
+    })
     for kname in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
         t = flash_timing[kname]
         kernels.append({

@@ -1,4 +1,5 @@
-// MoE capacity-slab dispatch and combine for Hopper (sm_90a).
+// MoE capacity-slab dispatch and combine, and the routing's
+// position-in-expert, for Hopper (sm_90a).
 //
 // Replaces the TPU kernels in src/repro/kernels/moe.py:
 //   * `dispatch_pallas` (:119, body `_dispatch_kernel` :108)
@@ -60,6 +61,34 @@
 //    of 16 bytes; otherwise both move one element a thread, and dispatch
 //    reads each slot's row from x (not staged).  Every path forms the same
 //    bits.
+//
+// Position-in-expert (`moe_positions`) replaces no TPU kernel: the
+// reference computes it in `moe_route` (src/repro/nn/moe.py:76) as
+// `jnp.cumsum` over an (G, S*K, E) one-hot, and the port's plain version
+// (`positions_cumsum` in src/repro_torch/kernels/moe.py) does the same:
+//   pos[g, i] = #{ j < i : eid[g, j] == eid[g, i] },  keep = pos < C.
+// The one-hot scan writes and reads E times the answer, serially down
+// S*K rows with G*E columns in parallel.  The answer itself is ~13 bytes a
+// pair (an int64 id in; an int32 position and a flag out), under 2 MB at
+// OLMoE's training shape (G 8, S*K 16,384): well under a microsecond of
+// bytes, so what bounds the kernel is latency, the dependent steps down a
+// group.  Design: one block per group (the groups are independent); each
+// warp owns a contiguous run of 32-pair rounds.  In a round, one ballot per
+// bit of the expert id (7 at E 64) gives the lanes that chose the same
+// expert, as __match_any_sync would (in an earlier form of this kernel,
+// timed in turns on the H100 at OLMoE's training shape, the ballots took
+// 31.4 us a call and __match_any_sync 44.5), and __popc(peers & lanes
+// below) each lane's rank among them; the lowest such lane keeps the
+// warp's running count of that expert in shared memory (warps x E ints,
+// 32 KB at E 256).  Pass 1 ranks each pair within its warp's run and parks
+// the rank in pos and the expert in the pair's keep byte; one exclusive
+// scan across the warps per expert turns the counts into each warp's
+// starting position; pass 2, every thread of the block over every pair,
+// adds the start and writes keep.  A lane loads 8 rounds of ids before it
+// ranks them.  The ids are read as `torch.sort` leaves them (int64, or
+// int32), through their strides; they are clamped into [0, E-1], as the
+// other kernels clamp.  No atomics: the integers are those of the cumsum,
+// on every input and on repeat.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -305,6 +334,142 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) combine_kernel(
   }
 }
 
+// --------------------------------------------------------------------------
+// position-in-expert
+// --------------------------------------------------------------------------
+
+constexpr int kPosMaxWarps = 32;
+constexpr int kPosMaxExperts = 256;
+constexpr int kPosBatch = 8;  // rounds of ids a lane loads before counting
+constexpr int kPosMaxBits = 9;  // ids 0..256
+
+// The clamped expert id of pair i (si: the ids' stride along the group),
+// or E where the pair is not the warp's.
+template <typename I>
+__device__ __forceinline__ int expert_at(const I* ids, int i, long long si,
+                                         bool valid, int E) {
+  if (!valid) return E;
+  const long long e = static_cast<long long>(ids[i * si]);
+  return static_cast<int>(min(max(e, 0LL), static_cast<long long>(E - 1)));
+}
+
+// The lanes whose v equals this lane's, for v below 2^bits: one ballot
+// per bit.
+__device__ __forceinline__ unsigned same_lanes(int v, int bits) {
+  unsigned peers = kFull;
+#pragma unroll
+  for (int b = 0; b < kPosMaxBits; ++b) {
+    if (b < bits) {
+      const bool one = (v >> b) & 1;
+      const unsigned m = __ballot_sync(kFull, one);
+      peers &= one ? m : ~m;
+    }
+  }
+  return peers;
+}
+
+// One round of 32 pairs: the lanes that chose expert e (e = E: no pair)
+// are `peers`; the lowest of them adds their number to the warp's count of
+// e and hands the count it found to the others.  Returns the count before
+// this lane's pair.
+__device__ __forceinline__ int count_round(int* count, int e, int E,
+                                           int bits, unsigned lt) {
+  const unsigned peers = same_lanes(e, bits);
+  const int lead = __ffs(peers) - 1;
+  int before = 0;
+  if (e < E && (peers & lt) == 0) {
+    before = count[e];
+    count[e] = before + __popc(peers);
+  }
+  before = __shfl_sync(kFull, before, lead) + __popc(peers & lt);
+  __syncwarp();  // the count is read by another lane in a later round
+  return before;
+}
+
+// grid (G): block g ranks group g's NK pairs; warp w owns rounds
+// [w * rpw, (w + 1) * rpw) of 32 pairs.  Dynamic shared memory: warps x E
+// ints.  eid is read through its strides sg, si (in elements: a (G, S*K)
+// view of the sorted ids is strided when S or K is 1); pos and keep (a
+// bool tensor's bytes, 0 or 1) are contiguous.
+template <typename I>
+__global__ void __launch_bounds__(kPosMaxWarps * kWarp) positions_kernel(
+    const I* __restrict__ eid, int32_t* __restrict__ pos,
+    uint8_t* __restrict__ keep, int NK, int E, int C, long long sg,
+    long long si, int rpw) {
+  extern __shared__ int counts[];  // [warps][E]
+  const int bits = 32 - __clz(E);  // ids 0..E, E marking no pair
+  const int warps = blockDim.x / kWarp;
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const unsigned lt = (1u << lane) - 1u;
+  const long long g0 = static_cast<long long>(blockIdx.x) * NK;
+  const I* ids = eid + blockIdx.x * sg;
+  int* count = counts + warp * E;
+  const int r0 = warp * rpw;
+  const int r1 = min(r0 + rpw, (NK + kWarp - 1) / kWarp);
+  for (int i = threadIdx.x; i < warps * E; i += blockDim.x) counts[i] = 0;
+  __syncthreads();
+
+  // pass 1: each pair's rank within its warp's run, parked in pos, with
+  // its expert parked in its keep byte (E <= 256); the warp's count of
+  // each expert in shared memory
+  for (int r = r0; r < r1; r += kPosBatch) {
+    int e[kPosBatch];
+#pragma unroll
+    for (int b = 0; b < kPosBatch; ++b) {
+      const int i = (r + b) * kWarp + lane;
+      e[b] = expert_at(ids, i, si, r + b < r1 && i < NK, E);
+    }
+#pragma unroll
+    for (int b = 0; b < kPosBatch; ++b) {
+      if (r + b >= r1) break;
+      const int p = count_round(count, e[b], E, bits, lt);
+      const int i = (r + b) * kWarp + lane;
+      if (i < NK) {
+        pos[g0 + i] = p;
+        keep[g0 + i] = static_cast<uint8_t>(e[b]);
+      }
+    }
+  }
+  __syncthreads();
+
+  // each warp's start in each expert: an exclusive scan over the warps
+  for (int x = threadIdx.x; x < E; x += blockDim.x) {
+    int run = 0;
+    for (int w = 0; w < warps; ++w) {
+      const int c = counts[w * E + x];
+      counts[w * E + x] = run;
+      run += c;
+    }
+  }
+  __syncthreads();
+
+  // pass 2: every thread of the block over every pair, adding the start of
+  // the pair's warp in the pair's expert (the barrier above makes pass 1's
+  // writes visible to the block)
+  const int per_warp = rpw * kWarp;
+  for (int i = threadIdx.x; i < NK; i += blockDim.x) {
+    const int p = pos[g0 + i] + counts[(i / per_warp) * E + keep[g0 + i]];
+    pos[g0 + i] = p;
+    keep[g0 + i] = p < C;
+  }
+}
+
+// The fewest warps that leave no warp idle, up to 32 (decode: one).
+template <typename I>
+cudaError_t launch_positions(const void* eid, void* pos, void* keep, int G,
+                             int NK, int E, int C, long long sg, long long si,
+                             cudaStream_t stream) {
+  const int rounds = (NK + kWarp - 1) / kWarp;
+  const int warps = min(kPosMaxWarps, rounds);
+  const int rpw = (rounds + warps - 1) / warps;
+  const size_t smem = sizeof(int) * warps * E;
+  positions_kernel<I><<<G, warps * kWarp, smem, stream>>>(
+      static_cast<const I*>(eid), static_cast<int32_t*>(pos),
+      static_cast<uint8_t*>(keep), NK, E, C, sg, si, rpw);
+  return cudaGetLastError();
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 template <typename T, int SLOTS>
@@ -427,6 +592,25 @@ int moe_combine(const void* buf, const void* eid, const void* pos,
   if (dtype == 1)
     return (int)launch_combine<__nv_bfloat16>(buf, eid, pos, w, out, G, S, K,
                                               E, C, D, sg, se, sc, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// eid (G, NK) with strides sg, si in elements, int32 (index_dtype 0) or
+// int64 (1); pos (G, NK) int32 and keep (G, NK) bytes, contiguous.  E at
+// most 256.
+int moe_positions(const void* eid, void* pos, void* keep, int G, int NK,
+                  int E, int C, long long sg, long long si, int index_dtype,
+                  void* stream) {
+  if (G <= 0 || NK <= 0 || NK > 0x7fffffff - 2 * kWarp * kPosBatch ||
+      E <= 0 || E > kPosMaxExperts)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (index_dtype == 0)
+    return (int)launch_positions<int32_t>(eid, pos, keep, G, NK, E, C, sg, si,
+                                          s);
+  if (index_dtype == 1)
+    return (int)launch_positions<long long>(eid, pos, keep, G, NK, E, C, sg,
+                                            si, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -17,6 +17,11 @@ D-wide row movement has two implementations each:
 * :func:`moe_dispatch_cuda` / :func:`moe_combine_cuda` — the hand-written
   Hopper kernels of ``csrc/moe.cu``, CUDA tensors only.
 
+The routing's position-in-expert likewise: :func:`positions_cumsum`, the
+reference's one-hot ``cumsum``, is the CPU path and the oracle of
+:func:`moe_positions_cuda`, a kernel of the same file that ranks each
+(token, k) pair among its group's earlier pairs of the same expert.
+
 Gradients through the kernels come from the autograd Functions
 :class:`MoeDispatch` and :class:`MoeCombine`, as the reference's
 ``custom_vjp`` defines them: dispatch is linear in x and its transpose is
@@ -32,6 +37,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 from torch import Tensor
 
 from repro_torch.kernels import _build
@@ -92,6 +98,20 @@ def dispatch_slots(eid, pos, wtok, *, num_experts: int, capacity: int,
 # --------------------------------------------------------------------------
 # plain PyTorch versions (the CPU path and the kernels' reference)
 # --------------------------------------------------------------------------
+
+
+def positions_cumsum(eid, *, capacity: int, num_experts: int):
+    """Position-in-expert of each (token, k) pair, as the reference's
+    ``moe_route`` computes it: an exclusive running count of each expert
+    down the group, through a ``cumsum`` over the ``(G, NK, E)`` one-hot.
+
+    eid: ``(G, NK)`` expert ids in ``[0, E)``.  Returns ``pos (G, NK)
+    int32`` and ``keep = pos < capacity`` (bool)."""
+    eid = eid.long()
+    onehot = F.one_hot(eid, num_experts)                     # (G, NK, E)
+    pos_in_e = onehot.cumsum(dim=1) - 1                      # exclusive rank
+    pos = torch.gather(pos_in_e, 2, eid[..., None])[..., 0]
+    return pos.to(torch.int32), pos < capacity
 
 
 def dispatch_slot(x, slot_src, slot_w):
@@ -295,6 +315,80 @@ def _moe_combine(buf: Tensor, eid: Tensor, pos: Tensor, w: Tensor) -> Tensor:
 def _(buf, eid, pos, w):
     G, S, _ = eid.shape
     return buf.new_empty((G, S, buf.shape[3]))
+
+
+#: the most experts the position kernel takes (its shared memory holds a
+#: count of each expert for each of up to 32 warps)
+POSITIONS_MAX_EXPERTS = 256
+_INDEX_DTYPES = {torch.int32: 0, torch.int64: 1}
+_POS_FN = None
+
+
+def _positions_fn():
+    """The position kernel's entry point, bound once, apart from
+    dispatch and combine (``_FNS``, which ``chip_smoke.py --baseline``
+    rebinds to an earlier ``moe.cu``)."""
+    global _POS_FN
+    if _POS_FN is None:
+        fn = _build.load("moe").moe_positions
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                       + [ctypes.c_longlong] * 2
+                       + [ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _POS_FN = fn
+    return _POS_FN
+
+
+def moe_positions_cuda(eid, capacity: int, num_experts: int):
+    """Launch the Hopper position-in-expert kernel (``csrc/moe.cu``).
+
+    Same contract as :func:`positions_cumsum`, bit for bit: ``eid (G, NK)``
+    int32 or int64 (as ``torch.sort`` leaves it), any strides (the view
+    ``moe_route`` reshapes is strided when S or K is 1), on a CUDA device;
+    returns ``pos (G, NK) int32`` and ``keep (G, NK) bool``, contiguous.  Ids
+    outside ``[0, num_experts)`` are clamped into it, as the other MoE
+    kernels clamp.  Raises for more than :data:`POSITIONS_MAX_EXPERTS`
+    experts, on anything else the kernel does not take and when the launch
+    is refused.  ``moe_positions_cuda.launches`` counts the launches,
+    through the custom op ``repro_torch::moe_positions`` (its fake
+    implementation lets a trace over fake tensors record it)."""
+    if not 1 <= num_experts <= POSITIONS_MAX_EXPERTS:
+        raise ValueError(f"moe_positions_cuda takes 1 to "
+                         f"{POSITIONS_MAX_EXPERTS} experts, not {num_experts}")
+    return _moe_positions(eid, capacity, num_experts)
+
+
+moe_positions_cuda.launches = 0
+
+
+@torch.library.custom_op("repro_torch::moe_positions", mutates_args=())
+def _moe_positions(eid: Tensor, capacity: int,
+                   num_experts: int) -> tuple[Tensor, Tensor]:
+    if not eid.is_cuda:
+        raise ValueError("moe_positions_cuda takes CUDA tensors only")
+    if eid.dtype not in _INDEX_DTYPES:
+        raise ValueError(f"moe_positions_cuda: eid dtype {eid.dtype} is not "
+                         "int32 or int64")
+    if eid.dim() != 2 or min(eid.shape) < 1:
+        raise ValueError("moe_positions_cuda: expected a non-empty eid "
+                         f"(G, NK); got {tuple(eid.shape)}")
+    G, NK = eid.shape
+    pos = torch.empty((G, NK), dtype=torch.int32, device=eid.device)
+    keep = torch.empty((G, NK), dtype=torch.bool, device=eid.device)
+    with torch.cuda.device(eid.device):
+        stream = torch.cuda.current_stream(eid.device).cuda_stream
+        err = _positions_fn()(eid.data_ptr(), pos.data_ptr(),
+                              keep.data_ptr(), G, NK, num_experts, capacity,
+                              *eid.stride(), _INDEX_DTYPES[eid.dtype], stream)
+    _launched("moe_positions", err, eid.shape)
+    moe_positions_cuda.launches += 1
+    return pos, keep
+
+
+@_moe_positions.register_fake
+def _(eid, capacity, num_experts):
+    return (eid.new_empty(eid.shape, dtype=torch.int32),
+            eid.new_empty(eid.shape, dtype=torch.bool))
 
 
 # --------------------------------------------------------------------------

@@ -31,17 +31,17 @@ def _layout(t, keep: tuple[int, ...]):
                  for p in t.placements)
 
 
-def _per_shard(fn, args, in_layouts, out_layout):
+def _per_shard(fn, args, in_layouts, *out_layouts):
     """``fn`` on each rank's shards of ``args`` (DTensors, or plain tensors
-    taken as replicated) laid out as ``in_layouts``; the result is a
-    DTensor laid out as ``out_layout``."""
+    taken as replicated) laid out as ``in_layouts``; each result is a
+    DTensor laid out as its entry of ``out_layouts``."""
     from torch.distributed.tensor import DTensor, Replicate
     from torch.distributed.tensor.experimental import local_map
 
     mesh = next(a.device_mesh for a in args if _is_dtensor(a))
     args = [a if _is_dtensor(a) else DTensor.from_local(
         a, mesh, [Replicate()] * mesh.ndim, run_check=False) for a in args]
-    return local_map(fn, out_placements=(out_layout,),
+    return local_map(fn, out_placements=out_layouts,
                      in_placements=tuple(in_layouts),
                      redistribute_inputs=True)(*args)
 
@@ -194,3 +194,25 @@ def moe_combine(buf, eid, pos, w, *, impl: str = "auto"):
     if _moe_impl(impl, buf) == "cuda":
         return moe_k.MoeCombine.apply(buf, eid, pos, w)
     return moe_k.combine_slot(buf, eid, pos, w)
+
+
+def moe_positions(eid, *, capacity: int, num_experts: int,
+                  impl: str = "auto"):
+    """Position-in-expert of the routing ``eid (G, S·K)``: each pair's
+    exclusive rank among its group's earlier pairs of the same expert, as
+    ``pos (G, S·K) int32`` and ``keep = pos < capacity`` (bool).
+
+    ``auto``: the CUDA kernel (:func:`moe_k.moe_positions_cuda`) for CUDA
+    tensors, the one-hot ``cumsum`` (:func:`moe_k.positions_cumsum`) for
+    CPU tensors; ``slot`` forces the plain version, ``cuda`` the kernel.
+    Groups are independent, so a DTensor keeps its group dim split."""
+    if _is_dtensor(eid):               # groups stay split
+        pl = _layout(eid, (0,))
+        return _per_shard(
+            lambda e: moe_positions(e, capacity=capacity,
+                                    num_experts=num_experts, impl=impl),
+            (eid,), (pl,), pl, pl)
+    if _moe_impl(impl, eid) == "cuda":
+        return moe_k.moe_positions_cuda(eid, capacity, num_experts)
+    return moe_k.positions_cumsum(eid, capacity=capacity,
+                                  num_experts=num_experts)

@@ -19,6 +19,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops as kops
 from repro_torch.obs.trace import span
 from repro_torch.parallel.act import (per_expert, shard_batch_act,
                                       shard_last_dim, shard_moe_group_buffer)
@@ -83,15 +84,18 @@ def _top_k(probs, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe_route(router, x, *, top_k: int, capacity: int):
+def moe_route(router, x, *, top_k: int, capacity: int,
+              impl: str = "auto"):
     """Top-k capacity routing for ``x (G, S, D)``.
 
     Returns ``(probs, gate, eid_f, pos, keep)``: probs (G, S, E) router
     softmax in float32; gate (G, S, K) renormalised top-k weights; and
     eid_f / pos / keep (G, S·K) flat per-(token, k) expert id (int32),
     position-in-expert (an exclusive running count within the group,
-    int32) and under-capacity mask.  Integer tensor ops only: no
-    device→host sync."""
+    int32) and under-capacity mask.  The positions come from
+    :func:`repro_torch.kernels.ops.moe_positions` with ``impl``
+    (``auto``: the CUDA kernel for CUDA tensors, the reference's one-hot
+    ``cumsum`` for CPU tensors).  No device→host sync."""
     G, S, _ = x.shape
     E = router.shape[1]
     K = top_k
@@ -102,11 +106,9 @@ def moe_route(router, x, *, top_k: int, capacity: int):
     gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
 
     eid_f = eid.reshape(G, S * K)                            # (G, NK)
-    onehot = F.one_hot(eid_f, E)                             # (G, NK, E)
-    pos_in_e = onehot.cumsum(dim=1) - 1                      # exclusive rank
-    pos = torch.gather(pos_in_e, 2, eid_f[..., None])[..., 0]
-    keep = pos < capacity
-    return (probs, gate, eid_f.to(torch.int32), pos.to(torch.int32), keep)
+    pos, keep = kops.moe_positions(eid_f, capacity=capacity, num_experts=E,
+                                   impl=impl)
+    return probs, gate, eid_f.to(torch.int32), pos, keep
 
 
 def ref_dispatch(x, eid_f, safe_pos, keep, *, num_experts: int,
@@ -151,8 +153,9 @@ def _moe(p, x, *, top_k: int, capacity_factor: float, impl: str,
     stage = span if spans else _no_span
 
     with stage("moe.route", "model"):
-        probs, gate, eid_f, pos, keep = moe_route(p["router"], x, top_k=K,
-                                                  capacity=C)
+        probs, gate, eid_f, pos, keep = moe_route(
+            p["router"], x, top_k=K, capacity=C,
+            impl="slot" if impl == "ref" else impl)
         safe_pos = torch.where(keep, pos, 0)
 
     with stage("moe.dispatch", "model"):
@@ -160,8 +163,6 @@ def _moe(p, x, *, top_k: int, capacity_factor: float, impl: str,
             buf = ref_dispatch(x, eid_f, safe_pos, keep, num_experts=E,
                                capacity=C, top_k=K)          # (G, E, C, D)
         else:
-            from repro_torch.kernels import ops as kops
-
             buf = kops.moe_dispatch(x, eid_f, pos, keep.to(torch.float32),
                                     num_experts=E, capacity=C, top_k=K,
                                     impl=impl)

@@ -10,7 +10,8 @@ summed in another order), bfloat16 atol 2e-2 (bf16 rounding of the
 gather's einsums and of the output); MoE dispatch/combine float32 atol
 1e-5, bfloat16 atol 5e-2 (the reference's kernel-test tolerances: the
 kernels form products in f32 and cast once, the slot versions multiply
-in bf16); flash attention forward float32 atol 2e-5 and bfloat16 atol
+in bf16), the MoE position-in-expert kernel bit-equal to the one-hot
+cumsum; flash attention forward float32 atol 2e-5 and bfloat16 atol
 2e-2 (the reference's kernel-test tolerances), backward against autograd
 of the plain version float32 atol 1e-4 rtol 1e-4 (sums over up to 2048
 keys or rows in another order) and bfloat16 atol 5e-2 rtol 1.6e-2 (one
@@ -505,6 +506,149 @@ def test_moe_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="last axis"):
         mk.moe_combine_cuda(buf.transpose(2, 3).contiguous().transpose(2, 3),
                             eid, pos, w)
+
+
+#: the position kernel's shapes: label, G, S, K, E, cf
+POSITION_CASES = [
+    ("olmoe train", 8, 2048, 8, 64, 1.25),
+    ("olmoe decode", 4, 1, 8, 64, 1.25),
+    ("qwen3-moe prefill", 1, 512, 8, 128, 1.25),
+    ("jamba decode", 4, 1, 2, 16, 1.25),
+    ("jamba prefill", 1, 512, 2, 16, 1.25),
+    ("S*K 111, not a multiple of 32", 3, 37, 3, 64, 1.0),
+    ("E 256, heavy drops", 2, 300, 4, 256, 0.25),
+]
+
+
+def _router_eid(G, S, K, E, device):
+    """Top-k expert ids of random router probabilities, (G, S·K) int64
+    as ``moe_route`` reshapes ``torch.sort``'s indices."""
+    g = torch.Generator(device=device).manual_seed(G * 7919 + S * K + E)
+    probs = torch.softmax(torch.randn((G, S, E), generator=g, device=device),
+                          dim=-1)
+    return nn_moe._top_k(probs, K)[1].reshape(G, S * K)
+
+
+@pytest.mark.parametrize("idx_dtype", [torch.int64, torch.int32])
+@pytest.mark.parametrize("label,G,S,K,E,cf", POSITION_CASES,
+                         ids=[c[0] for c in POSITION_CASES])
+def test_moe_positions_kernel_equals_the_cumsum(cuda, idx_dtype, label, G, S,
+                                                K, E, cf):
+    """pos and keep bit-equal to the one-hot cumsum, one launch a call,
+    the same bits on repeat."""
+    eid = _router_eid(G, S, K, E, cuda).to(idx_dtype)
+    C = nn_moe.moe_capacity(S, E, K, cf)
+    n = mk.moe_positions_cuda.launches
+    pos, keep = mk.moe_positions_cuda(eid, C, E)
+    assert mk.moe_positions_cuda.launches == n + 1
+    want_pos, want_keep = mk.positions_cumsum(eid, capacity=C, num_experts=E)
+    torch.cuda.synchronize()
+    assert pos.dtype == torch.int32 and keep.dtype == torch.bool
+    assert torch.equal(pos, want_pos) and torch.equal(keep, want_keep)
+    again = mk.moe_positions_cuda(eid, C, E)
+    assert torch.equal(again[0], pos) and torch.equal(again[1], keep)
+    assert mk.moe_positions_cuda.launches == n + 2
+
+
+@pytest.mark.parametrize("G,NK,E,C", [(2, 16384, 64, 320), (1, 4097, 256, 8),
+                                      (3, 5, 16, 8)])
+def test_moe_positions_kernel_with_every_pair_on_one_expert(cuda, G, NK, E,
+                                                            C):
+    """Adversarial routing: every pair of a group on one expert (another
+    per group), so positions run 0..NK-1 and all but C pairs overflow."""
+    eid = (torch.arange(G, device=cuda)[:, None] * 5 % E).expand(G, NK)
+    eid = eid.contiguous()
+    pos, keep = mk.moe_positions_cuda(eid, C, E)
+    want = mk.positions_cumsum(eid, capacity=C, num_experts=E)
+    torch.cuda.synchronize()
+    assert torch.equal(pos, want[0]) and torch.equal(keep, want[1])
+    assert torch.equal(pos[0].long(), torch.arange(NK, device=cuda))
+    assert int(keep.sum()) == G * min(C, NK)
+
+
+def test_moe_positions_kernel_clamps_out_of_range_ids(cuda):
+    eid = _router_eid(2, 64, 4, 16, cuda)
+    eid[0, ::7] = -3
+    eid[1, ::5] = 16 + 9
+    pos, keep = mk.moe_positions_cuda(eid, 24, 16)
+    want = mk.positions_cumsum(eid.clamp(0, 15), capacity=24, num_experts=16)
+    torch.cuda.synchronize()
+    assert torch.equal(pos, want[0]) and torch.equal(keep, want[1])
+
+
+def test_moe_positions_kernel_reads_strided_ids(cuda):
+    """Any 2-D view of the ids is read through its strides: the (G, S·K)
+    view ``moe_route`` makes of the sorted ids when S or K is 1, a
+    transpose, a step along the group."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    probs = torch.softmax(torch.randn((4, 1, 64), generator=g, device=cuda),
+                          dim=-1)
+    decode = nn_moe._top_k(probs, 8)[1].reshape(4, 8)
+    eid = _router_eid(3, 96, 2, 16, cuda)
+    views = {"decode": (decode, 8, 64), "transpose": (eid.t(), 8, 16),
+             "step 3": (eid[:, ::3], 12, 16)}
+    for label, (view, C, E) in views.items():
+        assert not view.is_contiguous(), label
+        pos, keep = mk.moe_positions_cuda(view, C, E)
+        want = mk.positions_cumsum(view, capacity=C, num_experts=E)
+        torch.cuda.synchronize()
+        assert torch.equal(pos, want[0]) and torch.equal(keep, want[1]), \
+            label
+
+
+def test_moe_positions_kernel_rejects_what_it_does_not_take(cuda):
+    eid = _router_eid(2, 24, 2, 8, cuda)
+    with pytest.raises(ValueError, match="int32 or int64"):
+        mk.moe_positions_cuda(eid.to(torch.int16), 8, 8)
+    with pytest.raises(ValueError, match="eid"):
+        mk.moe_positions_cuda(eid[None], 8, 8)
+    with pytest.raises(ValueError, match="eid"):
+        mk.moe_positions_cuda(eid[:, :0], 8, 8)
+    with pytest.raises(ValueError, match="experts"):
+        mk.moe_positions_cuda(eid, 8, mk.POSITIONS_MAX_EXPERTS + 1)
+
+
+@pytest.mark.parametrize("G,S,D,E,K,cf", [MOE_CASES[0], MOE_CASES[6],
+                                          MOE_CASES[8]])
+def test_moe_route_on_the_card_launches_the_position_kernel(cuda, G, S, D, E,
+                                                            K, cf):
+    """``moe_route`` on CUDA tensors takes its positions from the kernel
+    (one launch), and every output equals the plain route's bit for bit."""
+    r = np.random.default_rng(G + S + E)
+    x = torch.from_numpy(r.standard_normal((G, S, D), np.float32)).to(cuda)
+    router = torch.from_numpy(
+        (r.standard_normal((D, E)) / np.sqrt(D)).astype(np.float32)).to(cuda)
+    C = nn_moe.moe_capacity(S, E, K, cf)
+    n = mk.moe_positions_cuda.launches
+    got = nn_moe.moe_route(router, x, top_k=K, capacity=C)
+    assert mk.moe_positions_cuda.launches == n + 1
+    want = nn_moe.moe_route(router, x, top_k=K, capacity=C, impl="slot")
+    assert mk.moe_positions_cuda.launches == n + 1
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_olmoe_train_step_launches_the_position_kernel_per_layer(cuda):
+    """olmoe-1b-7b at full width and depth, bfloat16, one training step
+    (one sequence of 256 tokens): the position kernel runs twice a layer,
+    in the forward and in the remat recompute, 2 x 16 launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokenDataset
+    from repro_torch.launch.steps import init_train_state, make_train_step
+
+    cfg = get_config("olmoe-1b-7b")
+    params, opt = init_train_state(cfg, seed=0, device="cuda",
+                                   dtype=torch.bfloat16)
+    step = make_train_step(cfg, compute_dtype=torch.bfloat16, microbatch=None)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in
+             SyntheticTokenDataset(cfg.vocab, 1, 256).batch(0).items()}
+    n = mk.moe_positions_cuda.launches
+    params, opt, m = step(params, opt, batch)
+    assert mk.moe_positions_cuda.launches - n == 2 * cfg.num_layers == 32
+    assert np.isfinite(m["loss"].item())
+    del params, opt, m
+    torch.cuda.empty_cache()
 
 
 def _moe_routing(G, S, D, E, K, cf, device):

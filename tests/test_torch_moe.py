@@ -365,6 +365,62 @@ def test_ops_cuda_impl_raises_for_cpu_tensors():
                          impl="cuda")
 
 
+def test_ops_positions_auto_on_cpu_is_the_cumsum():
+    """On CPU tensors ``auto`` and ``slot`` give the one-hot cumsum's
+    positions and launch nothing; drops are where the cumsum reaches the
+    capacity."""
+    _, _, je, jpos, _ = _route_both(*_setup(1, 96, 32, 64, 8, 1.25)[:2],
+                                    8, 16)[0]
+    eid = torch.from_numpy(je).long()
+    n = tmk.moe_positions_cuda.launches
+    want = tmk.positions_cumsum(eid, capacity=16, num_experts=64)
+    for impl in ("auto", "slot"):
+        pos, keep = tops.moe_positions(eid, capacity=16, num_experts=64,
+                                       impl=impl)
+        assert pos.dtype == torch.int32 and keep.dtype == torch.bool
+        assert torch.equal(pos, want[0]) and torch.equal(keep, want[1])
+    np.testing.assert_array_equal(want[0].numpy(), jpos)
+    assert not bool(want[1].all())
+    assert tmk.moe_positions_cuda.launches == n
+
+
+@pytest.mark.parametrize("impl", ["interpret", "pallas", "ref", "nope"])
+def test_ops_positions_rejects_impls_the_port_does_not_have(impl):
+    with pytest.raises(ValueError, match="auto/slot/cuda"):
+        tops.moe_positions(torch.zeros((2, 8), dtype=torch.int64),
+                           capacity=8, num_experts=4, impl=impl)
+
+
+def test_ops_positions_cuda_impl_raises_for_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tops.moe_positions(torch.zeros((2, 8), dtype=torch.int64),
+                           capacity=8, num_experts=4, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        tmk.moe_positions_cuda(torch.zeros((2, 8), dtype=torch.int64), 8, 4)
+
+
+@pytest.mark.parametrize("E", [0, tmk.POSITIONS_MAX_EXPERTS + 1, 512])
+def test_positions_wrapper_raises_past_the_kernels_expert_limit(E):
+    with pytest.raises(ValueError, match="experts"):
+        tmk.moe_positions_cuda(torch.zeros((2, 8), dtype=torch.int64), 8, E)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_positions_fake_implementation_gives_shapes_and_dtypes(dtype):
+    """Under ``FakeTensorMode`` the custom op ``repro_torch::moe_positions``
+    runs its fake implementation: int32 positions and a bool mask of the
+    routing's shape, launching nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    n = tmk.moe_positions_cuda.launches
+    with FakeTensorMode():
+        eid = torch.empty((3, 40), dtype=dtype)
+        pos, keep = tmk.moe_positions_cuda(eid, 16, 64)
+        assert pos.shape == keep.shape == (3, 40)
+        assert pos.dtype == torch.int32 and keep.dtype == torch.bool
+    assert tmk.moe_positions_cuda.launches == n
+
+
 def test_wrappers_take_cuda_tensors_only():
     with pytest.raises(ValueError, match="CUDA tensors only"):
         tmk.moe_dispatch_cuda(torch.zeros((1, 2, 4)),
