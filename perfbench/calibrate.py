@@ -11,8 +11,13 @@ by the benchmark itself.
         --seeds 11,12,13 --seconds 20
     python3 perfbench/calibrate.py limits --workload olmoe-train-2k \\
         --seeds 11,12,13 --seconds 0 --fault half_batch
+    # a CTR cell: whole runs with a short window, faults planted
+    python3 perfbench/calibrate.py limits --workload ctr-criteo \\
+        --seeds 11,12,13 --seconds 5 --fault zeroed_push
 
-Each prints one JSON line per reading, with ``correct`` (and
+``limits`` hands the cell to its driver's ``calibrate(cell, seeds,
+seconds, device, fault, emit)``, which plants the faults it knows.  Each
+prints one JSON line per reading, with ``correct`` (and
 ``control_correct``): whether the cell's own checks pass on the
 program's (and the control's) numbers.  ``limits`` reads a dozen seeds
 and the control in one process, so the kernels and CUDA start once.
@@ -23,7 +28,6 @@ import dataclasses
 import json
 import os
 import sys
-import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 if HERE not in sys.path:
@@ -59,93 +63,6 @@ def sweep(cell, driver, rates, seconds: float, seed: int, device) -> None:
                / max(1, res["decode_steps"])})
 
 
-def train_limits(cell, driver, seeds, device, fault: str | None) -> None:
-    """Per seed: the program's three checked steps (one window step
-    after them) against the reference, and the float8 control against
-    the reference; with ``fault="half_batch"`` the program's loss is taken
-    over the first half of each batch only; ``"control_only"`` reads the
-    control alone."""
-    if fault == "half_batch":
-        from harness import port  # noqa: F401  (puts the port on the path)
-        from repro_torch.models import decoder as dec
-
-        orig = dec.loss_fn
-
-        def half(params, cfg, batch, **kw):
-            n = batch["tokens"].shape[0] // 2
-            return orig(params, cfg, {k: v[:n] for k, v in batch.items()},
-                        **kw)
-
-        dec.loss_fn = half
-    for seed in seeds:
-        t0 = time.perf_counter()
-        rec = {"seed": seed, "fault": fault}
-        if fault != "control_only":
-            prog = driver.run_program(cell, seed, 0.1, False, device, t0)
-            driver.free(device)
-        t1 = time.perf_counter()
-        ref = driver.run_reference(cell, seed, device)
-        driver.free(device)
-        t2 = time.perf_counter()
-        if fault != "control_only":
-            got = driver.compare(prog, ref, cell)
-            rec.update(**got, correct=driver.verdict_checks(cell, got)[1],
-                       losses=prog["losses"], ref_losses=ref["losses"],
-                       program_s=t1 - t0, reference_s=t2 - t1)
-        if fault in (None, "control_only"):
-            ctl = driver.run_reference(cell, seed, device, quant="fp8")
-            driver.free(device)
-            rec["control"] = driver.compare(ctl, ref, cell)
-            rec["control_correct"] = driver.verdict_checks(
-                cell, rec["control"])[1]
-        _emit(rec)
-
-
-def alter_served_tokens() -> None:
-    """Plant the fault 'a token altered where it is produced': the second
-    token of every slot in every decode chunk is replaced by the next
-    id."""
-    from harness import port  # noqa: F401  (puts the port on the path)
-    from repro_torch.models import decoder as dec
-
-    orig = dec.decode_loop
-
-    def altered(params, cfg, token, cache, index, steps, **kw):
-        toks, ntok, cache = orig(params, cfg, token, cache, index, steps,
-                                 **kw)
-        toks = toks.clone()
-        toks[:, 1] = (toks[:, 1] + 1) % cfg.vocab
-        return toks, ntok, cache
-
-    dec.decode_loop = altered
-
-
-def limits(cell, driver, seeds, seconds: float, device,
-           fault: str | None = None) -> None:
-    if fault == "altered_token":
-        alter_served_tokens()
-    for seed in seeds:
-        t0 = time.perf_counter()
-        st = driver.prepare(cell, seed, device)
-        driver.warm(st)
-        reqs = driver.make_requests(st, seed, seconds)
-        res, wall = driver.window(st, reqs, seconds)
-        t1 = time.perf_counter()
-        v = driver.check(st, reqs, res, seed, control=fault is None)
-        v["correct"] = driver.verdict_checks(cell, v)[1]
-        if fault is None:
-            # the control judged as the program is: the same limits, on
-            # the same sampled tokens
-            v["control_correct"] = driver.verdict_checks(cell, {
-                **v, **{k[len("control_"):]: x for k, x in v.items()
-                        if k.startswith("control_")}})[1]
-        _emit({"seed": seed, "fault": fault, **v, "requests": len(reqs),
-               "completed": sum(o == "completed" for o in res["outcomes"]),
-               **driver.end_to_end(res, wall), "setup_and_window_s": t1 - t0,
-               "check_s": time.perf_counter() - t1})
-        driver.free(st)
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("mode", choices=("sweep", "limits"))
@@ -154,7 +71,9 @@ def main(argv=None) -> int:
     ap.add_argument("--rates", default="")
     ap.add_argument("--seeds", default="1")
     ap.add_argument("--fault", default=None,
-                    choices=("half_batch", "altered_token", "control_only"))
+                    help="a fault that the cell driver's calibrate "
+                    "plants, or control_only where it reads the control "
+                    "alone")
     args = ap.parse_args(argv)
     cell = spec.load_cell(args.workload)
     import torch
@@ -168,10 +87,8 @@ def main(argv=None) -> int:
     if args.mode == "sweep":
         sweep(cell, driver, [float(r) for r in args.rates.split(",")],
               args.seconds, seeds[0], device)
-    elif cell.driver == "train":
-        train_limits(cell, driver, seeds, device, args.fault)
     else:
-        limits(cell, driver, seeds, args.seconds, device, args.fault)
+        driver.calibrate(cell, seeds, args.seconds, device, args.fault, _emit)
     return 0
 
 

@@ -237,3 +237,56 @@ def run(cell, *, seed: int, seconds: float, trace: bool, device,
     out["checks"], out["correct"] = verdict_checks(cell, verdict)
     free(st)
     return out
+
+
+def alter_served_tokens():
+    """Plant the fault 'a token altered where it is produced': the second
+    token of every slot in every decode chunk is replaced by the next id.
+    Returns what undoes it."""
+    from repro_torch.models import decoder as dec
+
+    orig = dec.decode_loop
+
+    def altered(params, cfg, token, cache, index, steps, **kw):
+        toks, ntok, cache = orig(params, cfg, token, cache, index, steps,
+                                 **kw)
+        toks = toks.clone()
+        toks[:, 1] = (toks[:, 1] + 1) % cfg.vocab
+        return toks, ntok, cache
+
+    dec.decode_loop = altered
+    return lambda: setattr(dec, "decode_loop", orig)
+
+
+def calibrate(cell, seeds, seconds: float, device, fault, emit) -> None:
+    """Per seed, a whole window at the cell's load and the judge's
+    numbers for the program and, with no fault, for its control (the
+    plain reference in float8 in the program's place) on the same sampled
+    tokens, judged by the same limits; ``fault="altered_token"`` plants
+    that fault in the decode loop."""
+    if fault not in (None, "altered_token"):
+        raise ValueError(f"unknown fault {fault!r}")
+    undo = alter_served_tokens() if fault == "altered_token" else None
+    try:
+        for seed in seeds:
+            t0 = time.perf_counter()
+            st = prepare(cell, seed, device)
+            warm(st)
+            reqs = make_requests(st, seed, seconds)
+            res, wall = window(st, reqs, seconds)
+            t1 = time.perf_counter()
+            v = check(st, reqs, res, seed, control=fault is None)
+            v["correct"] = verdict_checks(cell, v)[1]
+            if fault is None:
+                v["control_correct"] = verdict_checks(cell, {
+                    **v, **{k[len("control_"):]: x for k, x in v.items()
+                            if k.startswith("control_")}})[1]
+            emit({"seed": seed, "fault": fault, **v, "requests": len(reqs),
+                  "completed": sum(o == "completed"
+                                   for o in res["outcomes"]),
+                  **end_to_end(res, wall), "setup_and_window_s": t1 - t0,
+                  "check_s": time.perf_counter() - t1})
+            free(st)
+    finally:
+        if undo is not None:
+            undo()

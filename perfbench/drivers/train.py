@@ -33,6 +33,7 @@ import torch
 
 from harness import port, reference, traffic, weights
 from harness.devtrace import SliceClock, warm_profiler
+from harness.judge import gap_by_worst_leaf, verdict_checks
 
 B1 = 0.9
 
@@ -46,17 +47,6 @@ def batch(cell, seed: int, step: int, device) -> dict:
                                             cell.config["model"]["vocab"]),
                         device=device)
     return {"tokens": t[:, :-1], "labels": t[:, 1:]}
-
-
-def gap_by_worst_leaf(prog: dict, ref: dict, keep=None) -> tuple:
-    """max over leaves of |prog - ref| / max(ref, the median leaf's ref);
-    (gap, leaf)."""
-    names = [k for k in ref if keep is None or k in keep]
-    vals = sorted(ref[k] for k in names)
-    med = vals[len(vals) // 2]
-    worst = max(names, key=lambda k: abs(prog[k] - ref[k])
-                / max(ref[k], med, 1e-30))
-    return abs(prog[worst] - ref[worst]) / max(ref[worst], med, 1e-30), worst
 
 
 #: coordinates of each leaf whose first gradient is compared element by
@@ -217,14 +207,6 @@ def compare(prog: dict, ref: dict, cell) -> dict:
             "grad_diffs": diffs, "left_out": sorted(set(ref["grad1"]) - moving)}
 
 
-def verdict_checks(cell, got: dict) -> tuple[dict, bool]:
-    """Each number compared beside its limit (``limits`` of the cell, all
-    upper limits), and whether all hold."""
-    checks = {k: {"value": got[k], "limit": v}
-              for k, v in cell.params["limits"].items()}
-    return checks, all(c["value"] <= c["limit"] for c in checks.values())
-
-
 def free(device) -> None:
     gc.collect()
     if device.type == "cuda":
@@ -259,3 +241,48 @@ def run(cell, *, seed: int, seconds: float, trace: bool, device,
                  f"of the change: {got['left_out']}; reference check in "
                  f"{time.perf_counter() - t_check:.1f} s"),
     }
+
+
+def calibrate(cell, seeds, seconds: float, device, fault, emit) -> None:
+    """Per seed: the program's three checked steps (one window step
+    after them) against the reference, and the float8 control against
+    the reference; with ``fault="half_batch"`` the program's loss is taken
+    over the first half of each batch only; ``"control_only"`` reads the
+    control alone.  (``seconds`` is not used: no window is needed.)"""
+    if fault not in (None, "half_batch", "control_only"):
+        raise ValueError(f"unknown fault {fault!r}")
+    from repro_torch.models import decoder as dec
+
+    orig = dec.loss_fn
+    if fault == "half_batch":
+        def half(params, cfg, batch, **kw):
+            n = batch["tokens"].shape[0] // 2
+            return orig(params, cfg, {k: v[:n] for k, v in batch.items()},
+                        **kw)
+
+        dec.loss_fn = half
+    try:
+        for seed in seeds:
+            t0 = time.perf_counter()
+            rec = {"seed": seed, "fault": fault}
+            if fault != "control_only":
+                prog = run_program(cell, seed, 0.1, False, device, t0)
+                free(device)
+            t1 = time.perf_counter()
+            ref = run_reference(cell, seed, device)
+            free(device)
+            t2 = time.perf_counter()
+            if fault != "control_only":
+                got = compare(prog, ref, cell)
+                rec.update(**got, correct=verdict_checks(cell, got)[1],
+                           losses=prog["losses"], ref_losses=ref["losses"],
+                           program_s=t1 - t0, reference_s=t2 - t1)
+            if fault in (None, "control_only"):
+                ctl = run_reference(cell, seed, device, quant="fp8")
+                free(device)
+                rec["control"] = compare(ctl, ref, cell)
+                rec["control_correct"] = verdict_checks(
+                    cell, rec["control"])[1]
+            emit(rec)
+    finally:
+        dec.loss_fn = orig

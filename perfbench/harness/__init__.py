@@ -3,5 +3,6 @@ and byte counts, the plain reference, the judge and the trace reader.
 
 Nothing here imports the JAX package; only :mod:`harness.port` and the
 drivers import the PyTorch port (``repro_torch``), and
-:mod:`harness.reference` imports neither.
+:mod:`harness.reference` and :mod:`harness.ctr_reference` import
+neither.
 """

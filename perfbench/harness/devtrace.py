@@ -18,8 +18,8 @@ between a marker's host reading and its start on the device maps the
 trace's time base onto ``time.perf_counter``, so that device operations
 can be set against the program's spans (``repro_torch.obs``,
 perf_counter microseconds).  The trace does not keep every marker (the
-first after the start is often lost), so the offset is the one that the
-most (reading, marker) pairs agree on within ``ALIGN_US``.
+first after the start is often lost), so the markers it kept are paired
+with the host readings in launch order (see :func:`align`).
 """
 
 from __future__ import annotations
@@ -119,21 +119,43 @@ class SliceClock:
 
 
 def align(marks, spins) -> tuple[bool, float]:
-    """(found, shift): the offset host reading − marker start that the
-    most pairs share within ``ALIGN_US``; of those, the largest (a marker
-    that waited on earlier work started late).  Found when at least two
-    pairs agree, or when the trace kept one marker of one reading."""
-    offs = sorted(m - g for m in marks for g in spins)
-    if not offs:
+    """(found, shift): pair the markers the trace kept with the host
+    readings ``marks`` in launch order, and map device time onto the host
+    clock by the pairs.
+
+    ``spins`` are the kept markers in launch order, each ``(device start,
+    launch)``: the launch is the host call's time on the trace's clock
+    (None where the trace has no runtime event for it).  The first kept
+    marker is tried against each reading in turn; each later marker takes
+    the next reading that lies, by the same offset, within ``ALIGN_US``
+    of it.  The launches sit a fixed few microseconds after their
+    readings, so the right pairing is the one that pairs the most; device
+    starts stray by up to milliseconds from their launches, and are the
+    key only where a launch is missing.  The pairing is found when it
+    pairs at least two markers and no other pairs as many (or the trace
+    kept one marker of one reading); the shift is the largest (reading −
+    device start) of its pairs, that of a marker that did not wait."""
+    if not marks or not spins:
         return False, 0.0
-    best, j = (0, 0.0), 0
-    for i, o in enumerate(offs):
-        while o - offs[j] > ALIGN_US:
-            j += 1
-        if i - j + 1 > best[0]:
-            best = (i - j + 1, o)
-    found = best[0] >= 2 or (len(marks) == 1 and len(spins) == 1)
-    return found, best[1]
+    launched = all(launch is not None for _, launch in spins)
+    key = [launch if launched else start for start, launch in spins]
+    best, ties = [], 0
+    for j in range(len(marks) - len(spins) + 1):
+        off, r, pairs = marks[j] - key[0], j + 1, [(j, 0)]
+        for k in range(1, len(spins)):
+            t = key[k] + off
+            while r < len(marks) and marks[r] < t - ALIGN_US:
+                r += 1
+            if r < len(marks) and abs(marks[r] - t) <= ALIGN_US:
+                pairs.append((r, k))
+                r += 1
+        if len(pairs) > len(best):
+            best, ties = pairs, 1
+        elif len(pairs) == len(best):
+            ties += 1
+    found = ((len(best) >= 2 and ties == 1)
+             or (len(marks) == 1 and len(spins) == 1))
+    return found, max(marks[r] - spins[k][0] for r, k in best)
 
 
 @dataclasses.dataclass
@@ -164,8 +186,11 @@ class DeviceTrace:
                 runtime[e["args"]["correlation"]] = e["ts"]
         dev = [e for e in events
                if e.get("cat") in DEVICE_CATS and e.get("ph") == "X"]
-        spins = [e["ts"] for e in dev if MARKER in e["name"]]
-        aligned, shift = align(marks, spins)
+        spins = sorted((e.get("args", {}).get("correlation", 0), e["ts"],
+                        runtime.get(e.get("args", {}).get("correlation")))
+                       for e in dev if MARKER in e["name"])
+        aligned, shift = align(marks, [(ts, launch)
+                                       for _, ts, launch in spins])
         ops = []
         for e in dev:
             if MARKER in e["name"]:

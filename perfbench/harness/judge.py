@@ -8,6 +8,11 @@ gap by which its reference logit lies below the reference's best logit
 at that position is read; the number compared is the widest gap over the
 sample (``max_logit_gap``).  The control reads, at the same positions,
 the gap of the token that the float8 reference puts first.
+
+Training and CTR cells compare norms leaf by leaf
+(:func:`gap_by_worst_leaf`), and every cell holds each number it compares
+under its upper limit (:func:`verdict_checks`, the training and CTR
+drivers' own).
 """
 
 from __future__ import annotations
@@ -92,3 +97,22 @@ def judge_served(w, m: dict, picks, prompts, served, *, device,
     if control:
         out.update(_summary(np.concatenate(ctl), "control_"))
     return out
+
+
+def gap_by_worst_leaf(prog: dict, ref: dict, keep=None) -> tuple:
+    """max over leaves of |prog - ref| / max(ref, the median leaf's ref);
+    (gap, leaf)."""
+    names = [k for k in ref if keep is None or k in keep]
+    vals = sorted(ref[k] for k in names)
+    med = vals[len(vals) // 2]
+    worst = max(names, key=lambda k: abs(prog[k] - ref[k])
+                / max(ref[k], med, 1e-30))
+    return abs(prog[worst] - ref[worst]) / max(ref[worst], med, 1e-30), worst
+
+
+def verdict_checks(cell, got: dict) -> tuple[dict, bool]:
+    """Each number compared beside its limit (``limits`` of the cell, all
+    upper limits), and whether all hold."""
+    checks = {k: {"value": got[k], "limit": v}
+              for k, v in cell.params["limits"].items()}
+    return checks, all(c["value"] <= c["limit"] for c in checks.values())

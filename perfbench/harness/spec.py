@@ -5,9 +5,15 @@ the configurations and the metrics.  Each cell ``<name>`` has its own
 ``perfbench/cells/<name>.json`` (driver and its parameters: slots, rate,
 grace, limits), each traffic mix ``perfbench/traffic/<mix>.json`` and each
 configuration the ``file`` that ``BENCHMARK.json`` gives.  A per-layer
-metric ``<metric>`` is read by ``perfbench/metrics/<metric>.py``.  Adding a
-cell, a mix, a configuration or a metric is adding files: nothing here
-lists them.
+metric ``<metric>`` is read by ``perfbench/metrics/<metric>.py``, and the
+cell's driver ``<driver>`` (``"driver"`` in its cell file) is
+``perfbench/drivers/<driver>.py``, any name, with a ``run`` function.
+Adding a cell, a mix, a configuration or a metric is adding files, and so
+is a cell that needs a driver of its own: its driver, and as new modules
+under ``perfbench/harness/`` that its driver imports, its plain reference
+and, where no mix kind of ``harness/traffic.py`` fits, its traffic kind
+(the CTR cells' are ``drivers/ctr.py``, ``harness/ctr_reference.py`` and
+the ``ctr_ids`` kind).  Nothing here lists them.
 """
 
 from __future__ import annotations

@@ -18,7 +18,18 @@ Mix kinds (``"kind"`` in the file):
   each of ``b`` strata of the sorted lengths (``backlog`` a multiple of
   ``b``): any prefix then offers about the same work whatever the seed;
 * ``tokens`` — training batches of uniform token ids,
-  ``batch × (seq_len + 1)`` a step (inputs and next-token labels).
+  ``batch × (seq_len + 1)`` a step (inputs and next-token labels);
+* ``ctr_ids`` — click-through training batches of ``batch`` examples a
+  step, one id per slot of the configuration's ``ctr.cardinalities``:
+  slot ``s`` owns the rows ``[offset_s, offset_s + card_s)``, and its id
+  is a bounded Zipf draw (``zipf_exponent``, by the inverse CDF) over
+  them, rank ``r`` (0 the most frequent) giving row ``offset_s + r``.
+  The labels follow a seeded logistic model of the ids: each example's
+  score is ``Σ_s w_s · cos(id_s · GOLDEN_ANGLE)`` (``w_s`` normal with
+  deviation ``label_weight``) plus standard logistic noise, and the
+  ``round(positive_rate · batch)`` highest scores of the step are the
+  clicks, so every step holds the same number of positives.  Step ``k``
+  is drawn from its own stream, so a batch is made when it is asked for.
 
 Length distributions: ``{"dist": "lognormal", "median", "sigma", "min",
 "max"}`` or ``{"dist": "uniform", "min", "max"}`` (inclusive integers).
@@ -129,6 +140,46 @@ def requests(mix: dict, cell: dict, seed: int, seconds: float,
 def max_lengths(mix: dict) -> tuple[int, int]:
     """The longest prompt and output the mix can draw."""
     return int(mix["prompt"]["max"]), int(mix["output"]["max"])
+
+
+#: the feature of an id in the label model (radians)
+GOLDEN_ANGLE = math.pi * (3.0 - math.sqrt(5.0))
+
+
+def zipf_cdf(n: int, exponent: float) -> np.ndarray:
+    """The CDF of the Zipf law ``p(r) ∝ r^-exponent`` over the ranks
+    ``1..n`` (float64, exactly 1 at the end)."""
+    c = np.cumsum(np.arange(1, n + 1, dtype=np.float64) ** -exponent)
+    return c / c[-1]
+
+
+class ClickStream:
+    """The ``ctr_ids`` batches of one seed over a configuration's slots:
+    :meth:`batch` ``k`` gives step ``k``'s ``{"ids": (batch, slots) int32
+    global row ids, "label": (batch,) float32}``, the same for the same
+    seed and step whatever was drawn before."""
+
+    def __init__(self, mix: dict, cardinalities, seed: int):
+        cards = np.asarray(cardinalities, np.int64)
+        self.batch_size = int(mix["batch"])
+        self.offsets = np.concatenate([[0], np.cumsum(cards)[:-1]])
+        self.cdfs = [zipf_cdf(int(n), mix["zipf_exponent"]) for n in cards]
+        self.weights = rng(seed, 6000).standard_normal(len(cards)) \
+            * mix["label_weight"]
+        self.positives = round(mix["positive_rate"] * self.batch_size)
+        self.seed = seed
+
+    def batch(self, step: int) -> dict:
+        r = rng(self.seed, 5000 + step)
+        u = r.random((self.batch_size, len(self.cdfs)))
+        ranks = np.stack([np.searchsorted(c, u[:, s])
+                          for s, c in enumerate(self.cdfs)], axis=1)
+        ids = self.offsets + ranks
+        score = (np.cos(ids * GOLDEN_ANGLE) * self.weights).sum(axis=1) \
+            + r.logistic(size=self.batch_size)
+        label = np.zeros(self.batch_size, np.float32)
+        label[np.argsort(-score, kind="stable")[:self.positives]] = 1.0
+        return {"ids": ids.astype(np.int32), "label": label}
 
 
 def token_batch(mix: dict, seed: int, step: int, vocab: int) -> np.ndarray:

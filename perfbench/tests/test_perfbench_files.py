@@ -23,8 +23,10 @@ def bench():
 def test_every_cell_loads_with_its_files(bench):
     for w in bench["workloads"]:
         cell = spec.load_cell(w["name"])
-        assert cell.driver in ("serve", "train")
-        assert spec.load_driver(cell).run
+        # any driver a cell names, found by name as a file of its own
+        path = spec._find(cell, "drivers", cell.driver)
+        assert path.name == f"{cell.driver}.py"
+        assert callable(spec.load_driver(cell).run)
         assert any(m["name"] == "setup_s" for m in cell.end_to_end)
         assert len(cell.end_to_end) >= 2 and cell.per_layer
         for m in cell.per_layer:
@@ -86,6 +88,54 @@ def test_a_cell_mix_config_and_metric_are_added_by_files_alone(tmp_path):
         spec.load_cell("no-such-cell", root=root)
 
 
+ECHO_DRIVER = '''"""A driver no other cell has: it reports what its cell file says."""
+
+
+def run(cell, *, seed, seconds, trace, device, t_start):
+    p = cell.params
+    return {"attempted": 1, "failed": 0, "setup_s": 0.5, "wall_s": seconds,
+            "memory_peak_bytes": 0, "e2e": {"echo_s": p["echo"] + seed},
+            "trace": None, "spans": [], "switches": [], "t0": None,
+            "checks": {"echo_gap": {"value": 0, "limit": 0}},
+            "correct": True, "note": "echo"}
+'''
+
+
+def test_a_cell_with_a_driver_of_its_own_is_added_by_files_alone(tmp_path):
+    """A third kind of cell: its driver, cell file and metric are new
+    files, and the harness finds and runs it by name."""
+    import run
+
+    root = _tiny.write_bench(tmp_path, extra_metrics=[
+        {"name": "echo_seed.tiny", "unit": "s", "workloads": ["echo"]}])
+    pb = root / "perfbench"
+    (pb / "drivers").mkdir()
+    (pb / "drivers" / "echo.py").write_text(ECHO_DRIVER)
+    (pb / "metrics").mkdir()
+    (pb / "metrics" / "echo_seed.tiny.py").write_text(
+        "def read(ctx):\n    return ctx.e2e['echo_s']\n")
+    (pb / "cells" / "echo.json").write_text(json.dumps(
+        {"driver": "echo", "echo": 2.0}))
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    bench["workloads"].append({"name": "echo", "config": "tiny-ctr",
+                               "traffic": "tiny-ctr", "chips": 1})
+    bench["end_to_end"].insert(0, {"name": "echo_s", "unit": "s",
+                                   "workloads": ["echo"]})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    cell = spec.load_cell("echo", root=root, bench_dir=pb)
+    out = spec.load_driver(cell).run(cell, seed=3, seconds=1.0, trace=False,
+                                     device=None, t_start=0.0)
+    dev = {"platform": "cpu", "kind": "cpu", "count": 1,
+           "memory_peak_bytes": 0}
+    line = run.result_line(cell, out, False, dev)
+    assert line["metrics"] == {"echo_s": {"value": 5.0, "unit": "s"},
+                               "setup_s": {"value": 0.5, "unit": "s"}}
+    traced = run.result_line(cell, out, True, dev)
+    assert traced["metrics"] == {"echo_seed.tiny": {"value": 5.0,
+                                                    "unit": "s"}}
+    assert list(line)[-1] == "checks"
+
+
 def test_device_trace_aligns_on_the_start_marker_and_finds_idle_gaps():
     from harness.devtrace import DeviceTrace
 
@@ -110,12 +160,55 @@ def test_device_trace_aligns_on_the_start_marker_and_finds_idle_gaps():
     assert [o.name for o in t.ops_in(spans[0], ("fwd_kernel",))] == [
         "void fwd_kernel<bf16>"]
     # a trace that lost the first markers aligns on those it kept: the
-    # readings at 5400, 5700 and 6000 µs agree on the offset
+    # readings at 5400, 5700 and 6000 µs agree on the offset (the markers'
+    # correlations follow their launches, the stop marker's last)
     kept = [k("spin_kernel", 1400.0, 0.5, 5), k("spin_kernel", 1703.0, 0.5, 6),
-            *events[1:]]
+            *events[1:3], k("spin_kernel", 2000.0, 0.5, 7), events[4]]
     late = DeviceTrace.from_events(kept, [5000.0, 5400.0, 5700.0, 6000.0],
                                    5000.0, 6010.0)
     assert late.aligned and late.ops[0].start == 5010.0
     # one reading and no marker kept: unaligned
     none = DeviceTrace.from_events(events[1:3], [5000.0], 5000.0, 6010.0)
     assert not none.aligned
+
+
+def _marker_trace(starts, launches, kernel_at):
+    """Two kept markers (device start, host launch on the trace's clock)
+    and one kernel, as a profiler exports them."""
+    ev = [{"ph": "X", "cat": "kernel", "name": "gemm", "ts": kernel_at,
+           "dur": 100.0, "args": {"correlation": 1}}]
+    for i, (ts, launch) in enumerate(zip(starts, launches)):
+        ev.append({"ph": "X", "cat": "kernel", "name": "spin_kernel",
+                   "ts": ts, "dur": 0.5, "args": {"correlation": 10 + i}})
+        if launch is not None:
+            ev.append({"ph": "X", "cat": "cuda_runtime",
+                       "name": "cudaLaunchKernel", "ts": launch, "dur": 3.0,
+                       "args": {"correlation": 10 + i}})
+    return ev
+
+
+@pytest.mark.parametrize("with_launches", [True, False])
+def test_device_trace_is_not_aligned_one_step_off(with_launches):
+    """One marker a step, steps of ~1.37 s, the trace kept the second and
+    third of four markers, and CUPTI placed them 1.2 and 0.2 ms after
+    their launches: paired one step off, the readings 7.737 and 9.105 s
+    agree on an offset within 50 µs (the slice that read an idle share of
+    34.35%).  Paired in launch order by their launches they align right;
+    by device starts alone the two pairings tie, and the slice is left
+    unaligned rather than shifted by a step."""
+    from harness.devtrace import DeviceTrace, align
+
+    reads = [5_000_000.0, 6_368_000.0, 7_737_000.0, 9_105_000.0]
+    launches = [r - 4_000_000.0 + 15.0 for r in reads[1:3]]
+    starts = [launches[0] + 1200.0, launches[1] + 200.0]
+    right = max(reads[1] - starts[0], reads[2] - starts[1])
+    t = DeviceTrace.from_events(
+        _marker_trace(starts, launches if with_launches else [None, None],
+                      kernel_at=starts[0] + 10.0),
+        reads, reads[0], reads[-1])
+    if with_launches:
+        assert t.aligned and t.ops[0].start == starts[0] + 10.0 + right
+        assert reads[0] < t.ops[0].start < reads[-1]
+    else:
+        assert not t.aligned
+        assert align(reads, [(s, None) for s in starts])[0] is False

@@ -35,12 +35,13 @@ def test_no_source_under_perfbench_imports_jax_or_the_jax_package():
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    for name in ("reference.py", "judge.py", "flops.py", "traffic.py",
-                 "weights.py"):
+    for name in ("reference.py", "ctr_reference.py", "judge.py", "flops.py",
+                 "traffic.py", "weights.py"):
         assert not ({"repro_torch", "repro"}
                     & _imports(BENCH / "harness" / name)), name
     code = ("import sys; sys.path.insert(0, %r); "
-            "import harness.reference, harness.judge, harness.flops; "
+            "import harness.reference, harness.ctr_reference, "
+            "harness.judge, harness.flops, harness.traffic; "
             "print([m for m in sys.modules "
             "if m.split('.')[0] in ('repro_torch', 'repro', 'jax')])"
             % str(BENCH))
